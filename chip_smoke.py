@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (dba_mod_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each a hard failure (non-zero exit) when it goes wrong:
+
+1. the card: name and power limit from nvidia-smi;
+2. the build: every hand-written kernel is built from the sources in this
+   checkout (nvcc, at first use, into dba_mod_tpu_torch/_build/);
+3. each kernel against its plain PyTorch version on the card, at the shapes
+   the main path gives it (the CIFAR ResNet-18 state at C = 10 clients, with
+   invalid lanes, FoolsGold on and off, BN present): bitwise equal. Then its
+   device time (launches of one prepared leaf table), the wrapper's host
+   time, its bound, the plain version's time and one PyTorch library call's
+   time as a yardstick, each also as device time from torch.profiler;
+4. the main path through the CLI, dba_mod_tpu_torch.main.main: pretrain one
+   round of the full-width CIFAR workload (100 participants, 10 per round,
+   batch 64, 4 adversaries, synthetic CIFAR at its full size), then resume
+   it by name and train two rounds that both poison. The kernel's launch
+   count over that run must equal the local steps it ran (derived from the
+   recorded train_result.csv); the recorder files must exist and the
+   accuracies and the saved global model must be finite;
+5. a small input held against a reference: one poisoned MNIST smoke round
+   on the card against the same round on the CPU (the plain path), from the
+   same weights.
+
+The last lines are a JSON object with the kernels' numbers, the card's name
+and power limit, and the result line {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, without a CUDA card or without the package.
+"""
+from __future__ import annotations
+
+import csv
+import json
+import math
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 50, warmup: int = 5) -> float:
+    """Milliseconds per call of `fn` in steady state: CUDA events around
+    `reps` back-to-back calls, over `reps`. Where the host enqueues faster
+    than the card runs, this is the card's time; where it does not, it is
+    the host's."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_ms(fn, reps: int = 50) -> float:
+    """Median host milliseconds to return from `fn` (the enqueue), with the
+    card drained before each call so a full queue never blocks it."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20, name: str = "") -> float | None:
+    """Device milliseconds per call of `fn` from torch.profiler: the summed
+    durations of the device activities (whose name holds `name`) over
+    `reps` calls, over `reps`. User annotations are left out: they span
+    kernels already counted (Optimizer.step marks its kernels so). None
+    when the profiler saw none."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+          and not getattr(e, "is_user_annotation", False)
+          and name in e.name]
+    return sum(us) / reps / 1e3 if us else None
+
+
+# ---------------------------------------------------------------- phase 3
+def check_fused_update(dev) -> dict:
+    import torch
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.models import build_model
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    params = Params.from_yaml(REPO / "configs" / "cifar_params.yaml")
+    mv = build_model(params).init_vars(0, dev)
+    C, mu, wd = 10, float(params["momentum"]), float(params["decay"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rnd(like):
+        return torch.randn((C,) + tuple(like.shape), generator=gen,
+                           device=dev)
+
+    def state(fg_on):
+        def tree():
+            return {k: rnd(v) for k, v in mv.params.items()}
+        st = {"params": tree(), "grads": tree(), "mom": tree(),
+              "fg": tree() if fg_on else {},
+              "bn_new": {k: rnd(v) for k, v in mv.batch_stats.items()},
+              "bn_old": {k: rnd(v) for k, v in mv.batch_stats.items()}}
+        return st
+
+    lr = torch.rand((C,), generator=gen, device=dev)
+    max_err = 0.0
+    for fg_on in (False, True):
+        for valid in (torch.tensor([1, 0, 1, 1, 0, 1, 1, 1, 0, 1.0],
+                                   device=dev),
+                      torch.ones((C,), device=dev)):
+            st = state(fg_on)
+            want = fu.fused_step_update_reference(
+                lr, valid, st["params"], st["grads"], st["mom"], st["fg"],
+                st["bn_new"], st["bn_old"], momentum=mu, weight_decay=wd)
+            fu.fused_step_update(lr, valid, st["params"], st["grads"],
+                                 st["mom"], st["fg"], st["bn_new"],
+                                 st["bn_old"], momentum=mu, weight_decay=wd)
+            torch.cuda.synchronize()
+            for got, ref in zip((st["params"], st["mom"], st["fg"],
+                                 st["bn_old"]), want):
+                for k in ref:
+                    err = float((got[k] - ref[k]).abs().max())
+                    max_err = max(max_err, err)
+                    if not torch.equal(got[k], ref[k]):
+                        raise AssertionError(
+                            f"fused_step_update differs from its plain "
+                            f"version (fg={fg_on}, leaf {k}): max abs "
+                            f"{err}")
+    log(f"phase 3: fused_step_update bitwise equal to its plain version "
+        f"(62 param + 40 BN leaves, C={C}, FoolsGold on/off, invalid lanes)")
+
+    # timing at the main path's case: every client valid, FoolsGold off.
+    # The kernel's time is taken over launches of one prepared leaf table,
+    # so the wrapper's host work (checks, table) is not in it; that work is
+    # timed on its own, and the whole wrapper in steady state beside it.
+    st = state(False)
+    ones = torch.ones((C,), device=dev)
+    args = (lr, ones, st["params"], st["grads"], st["mom"], {}, st["bn_new"],
+            st["bn_old"])
+    kw = {"momentum": mu, "weight_decay": wd}
+    launch = fu.prepare_launch(*args, **kw)
+    ms = cuda_ms(launch)
+    kernel_profiler_ms = device_ms(launch, name="fused_step_update_kernel")
+    wrapper_ms = cuda_ms(lambda: fu.fused_step_update(*args, **kw))
+    wrapper_host_ms = host_ms(lambda: fu.fused_step_update(*args, **kw))
+
+    def plain():
+        fu.fused_step_update_reference(*args, **kw)
+
+    plain_ms = cuda_ms(plain)
+    plain_device_ms = device_ms(plain)
+    # yardstick: torch's fused multi-tensor SGD over the same param leaves
+    # with one lr (no validity select, no BN select); never used by the port
+    leaves = [t.clone().requires_grad_(True) for t in st["params"].values()]
+    for t, g in zip(leaves, st["grads"].values()):
+        t.grad = g
+    opt = torch.optim.SGD(leaves, lr=0.1, momentum=mu, weight_decay=wd,
+                          fused=True)
+    library_ms = cuda_ms(opt.step)
+    library_device_ms = device_ms(opt.step)
+    n_p = sum(t.numel() for t in st["params"].values())
+    n_b = sum(t.numel() for t in st["bn_old"].values())
+    # each input read once, each output written once, as this run's data
+    # needs: sgd reads w, g, m and writes w, m (20 B); with every client
+    # valid, sel reads bn_new and writes bn_old (8 B)
+    nbytes = 20 * n_p + 8 * n_b
+    flops = 6 * n_p
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / FP32_FLOPS * 1e3
+    return {"name": "fused_step_update", "route": "cuda",
+            "source": "dba_mod_tpu_torch/csrc/fused_update.cu",
+            "replaces": "dba_mod_tpu/ops/fused_update.py:69",
+            "launches": 0, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+            "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
+                         else "operations"),
+            "library_ms": library_ms,
+            "kernel_profiler_ms": kernel_profiler_ms,
+            "wrapper_ms": wrapper_ms, "wrapper_host_ms": wrapper_host_ms,
+            "plain_device_ms": plain_device_ms,
+            "library_device_ms": library_device_ms, "bytes": nbytes}
+
+
+# ---------------------------------------------------------------- phase 4
+def expected_launches(train_csv: Path, batch: int) -> int:
+    """Local steps the recorded rounds ran: in each (round, internal epoch)
+    the stacked step loop runs the steps where ANY client has a sample,
+    i.e. max over clients of ceil(samples / batch). A client with no
+    samples is recorded with total 1 and loss 0."""
+    steps: dict = {}
+    with open(train_csv, newline="") as f:
+        for row in csv.DictReader(f):
+            n = int(row["total_data"])
+            if n == 1 and float(row["average_loss"]) == 0.0:
+                n = 0
+            key = (int(row["epoch"]), int(row["internal_epoch"]))
+            steps[key] = max(steps.get(key, 0), -(-n // batch))
+    return sum(steps.values())
+
+
+def run_main_path(tmp: Path) -> dict:
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.models import build_model
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    raw = yaml.safe_load((REPO / "configs" / "cifar_params.yaml").read_text())
+    raw.update(synthetic_data=True, run_dir=str(tmp / "runs"),
+               checkpoint_dir=str(tmp / "ckpt"), save_model=True,
+               save_on_epochs=[2, 3],
+               **{"0_poison_epochs": [2], "1_poison_epochs": [3]})
+    cfg_path = tmp / "cifar_smoke.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+
+    t0 = time.perf_counter()
+    if cli_main(["pretrain", "--params", str(cfg_path), "--epochs", "1",
+             "--out", "cifar_pretrain/smoke"]) != 0:
+        raise AssertionError("pretrain failed")
+    pretrain_s = time.perf_counter() - t0
+    fu.fused_step_update.launches = 0
+    t0 = time.perf_counter()
+    if cli_main(["train", "--params", str(cfg_path), "--resume",
+             "cifar_pretrain/smoke", "--epochs", "3"]) != 0:
+        raise AssertionError("train failed")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = fu.fused_step_update.launches
+
+    runs = list((tmp / "runs").iterdir())
+    if len(runs) != 1:
+        raise AssertionError(f"expected one run folder, found {runs}")
+    folder = runs[0]
+    for name in ("train_result.csv", "test_result.csv",
+                 "posiontest_result.csv", "poisontriggertest_result.csv",
+                 "round_result.csv", "scale_result.csv", "metrics.jsonl",
+                 "params.yaml", "params.html"):
+        if not (folder / name).is_file():
+            raise AssertionError(f"recorder file missing: {name}")
+    want = expected_launches(folder / "train_result.csv", int(raw["batch_size"]))
+    if launches != want or launches == 0:
+        raise AssertionError(f"fused kernel launched {launches} times, the "
+                             f"rounds ran {want} local steps")
+    rows = [json.loads(l) for l in
+            (folder / "metrics.jsonl").read_text().splitlines() if l.strip()]
+    if [r["epoch"] for r in rows] != [2, 3]:
+        raise AssertionError(f"recorded epochs {[r['epoch'] for r in rows]}")
+    for r in rows:
+        for k in ("global_acc", "backdoor_acc"):
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f"non-finite {k} in {r}")
+        if not r["adversaries"]:
+            raise AssertionError(f"round {r['epoch']} did not poison")
+    params = Params.from_yaml(cfg_path)
+    like = build_model(params).init_vars(0, torch.device("cpu"))
+    min_var = {}
+    for ep, name in ((2, "model_last.pt.tar.epoch_2"),
+                     (3, "model_last.pt.tar")):
+        ok, why = ckpt.verify_checkpoint(folder / name)
+        if not ok:
+            raise AssertionError(f"saved global model {name} not verified: "
+                                 f"{why}")
+        gv, epoch, _ = ckpt.load_checkpoint(folder / name, like)
+        if epoch != ep:
+            raise AssertionError(f"{name} holds epoch {epoch}, not {ep}")
+        for k, v in list(gv.params.items()) + list(gv.batch_stats.items()):
+            if not torch.isfinite(v).all():
+                raise AssertionError(f"non-finite global model leaf {k} "
+                                     f"after epoch {ep}")
+        # FedAvg averages the BN running stats with the scaled deltas
+        # (helper.py:240-257): a ×100 adversary can leave a running
+        # variance below zero, and the eval loss of that round is then NaN
+        # (rsqrt of a negative) while the weights stay finite
+        min_var[ep] = min(float(v.min()) for k, v in gv.batch_stats.items()
+                          if k.endswith("running_var"))
+    with open(folder / "round_result.csv", newline="") as f:
+        round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
+    log(f"phase 4: pretrain {pretrain_s:.1f}s; resumed train of 2 poisoned "
+        f"rounds {train_s:.1f}s; round_time per round {round_s}; "
+        f"{launches} fused launches = {want} local steps; final "
+        f"acc={rows[-1]['global_acc']:.2f} "
+        f"backdoor={rows[-1]['backdoor_acc']:.2f}; global eval loss "
+        f"{[r['global_loss'] for r in rows]}, min BN running var "
+        f"{min_var}")
+    return {"launches": launches, "round_s": round_s,
+            "pretrain_s": pretrain_s, "train_s": train_s,
+            "global_acc": [r["global_acc"] for r in rows],
+            "global_loss": [r["global_loss"] if math.isfinite(
+                float(r["global_loss"])) else str(r["global_loss"])
+                for r in rows],
+            "min_running_var": [min_var[2], min_var[3]],
+            "backdoor_acc": [r["backdoor_acc"] for r in rows]}
+
+
+# ---------------------------------------------------------------- phase 5
+def check_small_reference(tmp: Path) -> dict:
+    """One poisoned MNIST smoke round (smoke_params.yaml at its own small
+    size) on the card against the same round on the CPU, from the same
+    initial weights and plans. The CPU run is the plain path (plain fused
+    update, CPU convolutions). Bound 1e-4 on the global state: f32
+    convolutions sum in another order in cuDNN than on the CPU, and the
+    ~1e-7 relative differences compound over the round's SGD steps."""
+    import torch
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+
+    outs = {}
+    for name in ("cuda", "cpu"):
+        p = Params.from_yaml(REPO / "configs" / "smoke_params.yaml")
+        p.raw.update(run_dir=str(tmp / f"small_{name}"))
+        exp = Experiment(p, save_results=False, device=name)
+        r = exp.run_round(3)       # adversary 0 poisons from round 3
+        outs[name] = (r, {k: v.cpu() for k, v in
+                          exp.global_vars.params.items()})
+    diff = max(float((outs["cuda"][1][k] - outs["cpu"][1][k]).abs().max())
+               for k in outs["cpu"][1])
+    acc_gap = abs(outs["cuda"][0]["global_acc"] - outs["cpu"][0]["global_acc"])
+    if not diff <= 1e-4 or not acc_gap <= 1.0:
+        raise AssertionError(f"card vs CPU MNIST round: global max abs diff "
+                             f"{diff}, accuracy gap {acc_gap}")
+    log(f"phase 5: MNIST round card vs CPU: global max abs diff {diff:.3g}, "
+        f"accuracy gap {acc_gap:.3g}")
+    return {"global_max_abs_diff": diff, "acc_gap": acc_gap}
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this smoke "
+              "test needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from dba_mod_tpu_torch.ops import fused_update as fu
+    from dba_mod_tpu_torch.utils import cuda_build
+    from dba_mod_tpu_torch.utils.device import (pin_float32_math,
+                                                resolve_device)
+
+    dev = resolve_device("cuda")
+    pin_float32_math()
+    card = card_line()
+    log(f"phase 1: card: {card}; torch {torch.__version__} CUDA "
+        f"{torch.version.cuda}; {torch.cuda.get_device_name(0)} x "
+        f"{torch.cuda.device_count()}")
+
+    t0 = time.perf_counter()
+    fu._load()
+    log(f"phase 2: built {sorted(cuda_build.build_seconds) or 'nothing'} "
+        f"(nvcc seconds {cuda_build.build_seconds}); load total "
+        f"{time.perf_counter() - t0:.2f}s")
+
+    kernel = check_fused_update(dev)
+    log(f"phase 3: fused_step_update kernel {kernel['ms']:.4f} ms "
+        f"(profiler {kernel['kernel_profiler_ms']}), bound "
+        f"{kernel['bound_ms']:.4f} ms ({kernel['bytes'] / 1e6:.1f} MB); "
+        f"wrapper {kernel['wrapper_ms']:.4f} ms per call, of which host "
+        f"{kernel['wrapper_host_ms']:.4f} ms; plain {kernel['plain_ms']:.4f} "
+        f"ms (device {kernel['plain_device_ms']}); torch SGD(fused=True) "
+        f"{kernel['library_ms']:.4f} ms (device "
+        f"{kernel['library_device_ms']})")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
+        tmp = Path(td)
+        path = run_main_path(tmp)
+        kernel["launches"] = path["launches"]
+        small = check_small_reference(tmp)
+
+    del kernel["bytes"]
+    print(json.dumps({"main_path": path, "small_reference": small}),
+          flush=True)
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

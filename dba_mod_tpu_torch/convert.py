@@ -1,0 +1,127 @@
+"""Carry weights between the JAX package and the port.
+
+``from_jax_numpy`` takes the JAX package's ``ModelVars`` as nested dicts of
+numpy arrays (flax layout) and returns the port's ``ModelVars`` of CPU
+tensors; ``to_jax_numpy`` is its inverse. The mapping:
+
+- conv kernel ``[kh, kw, in, out]`` → torch weight ``[out, in, kh, kw]``;
+- Dense kernel ``[in, out]`` → Linear weight ``[out, in]``;
+- BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats) →
+  ``weight/bias`` and ``running_mean/running_var``.
+
+The port's MnistNet flattens its activations in NHWC order like flax, so
+its fc1 needs no row permutation. Used by the parity tests and by anyone
+moving a checkpoint between the two packages.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from dba_mod_tpu_torch.models import ModelVars
+from dba_mod_tpu_torch.models.resnet import _has_shortcut, block_plan
+
+Nested = Dict[str, Any]
+
+
+def _conv_in(k) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _conv_out(w) -> np.ndarray:
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
+
+
+def _dense_in(k) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(k).T)
+
+
+_dense_out = _dense_in
+
+
+def _pairs(model_name: str):
+    """(flax path, port key, kind) for every parameter and BN stat."""
+    if model_name == "MnistNet":
+        return [(("Conv_0", "kernel"), "conv1.weight", "conv"),
+                (("Conv_0", "bias"), "conv1.bias", "id"),
+                (("Conv_1", "kernel"), "conv2.weight", "conv"),
+                (("Conv_1", "bias"), "conv2.bias", "id"),
+                (("Dense_0", "kernel"), "fc1.weight", "dense"),
+                (("Dense_0", "bias"), "fc1.bias", "id"),
+                (("Dense_1", "kernel"), "fc2.weight", "dense"),
+                (("Dense_1", "bias"), "fc2.bias", "id")]
+    if model_name == "CifarResNet18":
+        out = []
+
+        def conv(path, key):
+            out.append((path + ("kernel",), f"{key}.weight", "conv"))
+
+        def bn(path, key):
+            out.append((path + ("scale",), f"{key}.weight", "id"))
+            out.append((path + ("bias",), f"{key}.bias", "id"))
+            out.append((("stats",) + path + ("mean",),
+                        f"{key}.running_mean", "id"))
+            out.append((("stats",) + path + ("var",),
+                        f"{key}.running_var", "id"))
+
+        conv(("Conv_0",), "stem_conv")
+        bn(("BatchNorm_0",), "stem_bn")
+        for i, (cin, planes, stride) in enumerate(block_plan()):
+            b = (f"BasicBlock_{i}",)
+            conv(b + ("Conv_0",), f"blocks.{i}.conv1")
+            bn(b + ("BatchNorm_0",), f"blocks.{i}.bn1")
+            conv(b + ("Conv_1",), f"blocks.{i}.conv2")
+            bn(b + ("BatchNorm_1",), f"blocks.{i}.bn2")
+            if _has_shortcut(cin, planes, stride):
+                conv(b + ("Conv_2",), f"blocks.{i}.sc_conv")
+                bn(b + ("BatchNorm_2",), f"blocks.{i}.sc_bn")
+        out.append((("Dense_0", "kernel"), "fc.weight", "dense"))
+        out.append((("Dense_0", "bias"), "fc.bias", "id"))
+        return out
+    raise NotImplementedError(f"no weight mapping for {model_name!r}")
+
+
+def _get(tree: Nested, path) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree: Nested, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def from_jax_numpy(model_name: str, params: Nested,
+                   batch_stats: Nested) -> ModelVars:
+    """flax-layout numpy trees → the port's ModelVars (CPU float32)."""
+    conv_in = {"conv": _conv_in, "dense": _dense_in, "id": np.asarray}
+    p, s = {}, {}
+    for path, key, kind in _pairs(model_name):
+        if path[0] == "stats":
+            s[key] = torch.from_numpy(np.array(_get(batch_stats, path[1:]),
+                                               np.float32))
+        else:
+            p[key] = torch.from_numpy(np.array(
+                conv_in[kind](_get(params, path)), np.float32))
+    return ModelVars(p, s)
+
+
+def to_jax_numpy(model_name: str, model_vars: ModelVars
+                 ) -> Tuple[Nested, Nested]:
+    """The port's ModelVars → (params, batch_stats) flax-layout numpy
+    trees."""
+    conv_out = {"conv": _conv_out, "dense": _dense_out, "id": np.asarray}
+    params: Nested = {}
+    stats: Nested = {}
+    for path, key, kind in _pairs(model_name):
+        if path[0] == "stats":
+            _put(stats, path[1:],
+                 model_vars.batch_stats[key].detach().cpu().numpy())
+        else:
+            _put(params, path, conv_out[kind](
+                model_vars.params[key].detach().cpu().numpy()))
+    return params, stats

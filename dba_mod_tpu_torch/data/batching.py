@@ -1,0 +1,84 @@
+"""Batch plans: precomputed index tensors driving device-resident gathers.
+
+The reference's DataLoader+SubsetRandomSampler reshuffles each client's subset
+every internal epoch and yields a partial final batch (image_helper.py:252-263,
+drop_last=False). The stacked-client equivalent precomputes, per round, an
+index tensor [clients, epochs, steps, batch] plus a validity mask; the client
+step gathers rows straight from the device-resident dataset — the host ships
+only these small int32 plans each round. Port of dba_mod_tpu/data/batching.py:
+the same numpy RNG consumption, so both packages build the same plans.
+
+Shuffling uses per-client numpy RNG rather than the reference's global torch
+RNG: the sequential loop's RNG stream is inherently irreproducible under
+parallel clients, so parity here is statistical (SURVEY §7.2.4).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class BatchPlan:
+    """One round's data access plan for the stacked client step."""
+    idx: np.ndarray        # [C, E, S, B] int32 indices into the dataset
+    mask: np.ndarray       # [C, E, S, B] bool — valid (non-padding) samples
+    num_samples: np.ndarray  # [C] int32 — true per-client dataset sizes
+    num_epochs: np.ndarray   # [C] int32 — per-client internal-epoch counts
+
+
+@dataclasses.dataclass
+class EvalPlan:
+    idx: np.ndarray        # [S, B] int32
+    mask: np.ndarray       # [S, B] bool
+
+
+def build_batch_plan(client_indices: Sequence[Sequence[int]],
+                     client_epochs: Sequence[int], batch_size: int,
+                     rng: np.random.RandomState,
+                     min_steps: int = 1, min_epochs: int = 1) -> BatchPlan:
+    """Build the [C, E, S, B] plan. E = max(client_epochs, min_epochs);
+    clients with fewer epochs get fully-masked rows beyond their count. Every
+    epoch reshuffles each client's subset (SubsetRandomSampler semantics).
+    Empty clients are fully masked. `min_steps`/`min_epochs` pin the plan
+    shape across rounds (the JAX package compiles the round once)."""
+    C = len(client_indices)
+    E = max(min_epochs, max(client_epochs, default=1), 1)
+    sizes = np.array([len(ix) for ix in client_indices], np.int32)
+    S = max(min_steps, int(np.ceil(sizes.max() / batch_size)) if sizes.max() else min_steps)
+    idx = np.zeros((C, E, S, batch_size), np.int64)
+    mask = np.zeros((C, E, S, batch_size), bool)
+    for c, indices in enumerate(client_indices):
+        n = len(indices)
+        if n == 0:
+            continue
+        arr = np.asarray(indices, np.int64)
+        for e in range(min(int(client_epochs[c]), E) if client_epochs[c] else 0):
+            shuffled = arr[rng.permutation(n)]
+            # Pad by wrapping the shuffled subset rather than with zeros:
+            # padding rows are masked out of the loss but still flow through
+            # BatchNorm's batch statistics, so they must be real samples of
+            # the same client, not black images.
+            reps = int(np.ceil(S * batch_size / n))
+            padded = np.tile(shuffled, reps)[:S * batch_size]
+            idx[c, e] = padded.reshape(S, batch_size)
+            m = np.zeros((S * batch_size,), bool)
+            m[:n] = True
+            mask[c, e] = m.reshape(S, batch_size)
+    return BatchPlan(idx=idx.astype(np.int32), mask=mask, num_samples=sizes,
+                     num_epochs=np.asarray(client_epochs, np.int32))
+
+
+def build_eval_plan(indices: np.ndarray, batch_size: int) -> EvalPlan:
+    """Sequential padded batches over `indices` (test loaders iterate the full
+    set once; order is irrelevant to the accuracy sums — test.py:29-37)."""
+    n = len(indices)
+    S = max(1, int(np.ceil(n / batch_size)))
+    idx = np.zeros((S * batch_size,), np.int64)
+    idx[:n] = np.asarray(indices, np.int64)
+    mask = np.zeros((S * batch_size,), bool)
+    mask[:n] = True
+    return EvalPlan(idx=idx.reshape(S, batch_size).astype(np.int32),
+                    mask=mask.reshape(S, batch_size))

@@ -1,0 +1,65 @@
+"""Device-resident datasets and the fetch/stamp closures used by the client
+step (port of dba_mod_tpu/fl/device_data.py:40-66).
+
+The train and test sets live on the device once, as uint8 NHWC, and are
+scaled to [0, 1] at gather time (the reference's ToTensor()-only pipeline,
+image_helper.py:178-201). A batch fetch is one index gather: the host
+ships only the int32 batch plans.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Tuple
+
+import numpy as np
+import torch
+
+from dba_mod_tpu_torch import config as cfg
+from dba_mod_tpu_torch.data.datasets import ImageData
+from dba_mod_tpu_torch.ops import triggers
+
+# fetch(slot, idx[..., B]) -> (x[..., B, H, W, ch] float32, y[..., B] int64)
+FetchFn = Callable[[torch.Tensor, torch.Tensor],
+                   Tuple[torch.Tensor, torch.Tensor]]
+# stamp(x, y, adv_index, k, poison_all) -> (x, y, poisoned_mask)
+StampFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class DeviceData:
+    fetch_train: FetchFn
+    fetch_test: FetchFn
+    stamp: StampFn
+    num_train: int
+    num_test: int
+    device: torch.device
+
+
+def make_image_device_data(data: ImageData, params: cfg.Params,
+                           device: torch.device) -> DeviceData:
+    train_x = torch.from_numpy(np.ascontiguousarray(
+        data.train_images)).to(device)                    # [N,H,W,ch] uint8
+    train_y = torch.from_numpy(data.train_labels.astype(np.int64)).to(device)
+    test_x = torch.from_numpy(np.ascontiguousarray(
+        data.test_images)).to(device)
+    test_y = torch.from_numpy(data.test_labels.astype(np.int64)).to(device)
+    h, w = data.train_images.shape[1:3]
+    bank = torch.from_numpy(
+        triggers.build_pixel_pattern_bank(params, h, w)).to(device)
+    swap = int(params["poison_label_swap"])
+
+    def fetch_train(slot, idx):
+        idx = idx.long()
+        return train_x[idx].to(torch.float32) / 255.0, train_y[idx]
+
+    def fetch_test(slot, idx):
+        idx = idx.long()
+        return test_x[idx].to(torch.float32) / 255.0, test_y[idx]
+
+    def stamp(x, y, adv_index, k, poison_all=False):
+        return triggers.poison_batch(x, y, bank, adv_index, swap, k,
+                                     poison_all)
+
+    return DeviceData(fetch_train, fetch_test, stamp,
+                      num_train=len(data.train_labels),
+                      num_test=len(data.test_labels), device=device)

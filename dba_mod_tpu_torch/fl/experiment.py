@@ -1,0 +1,513 @@
+"""The end-to-end FL experiment loop, synchronous FedAvg path (port of
+dba_mod_tpu/fl/experiment.py).
+
+Data loading + partitioning once at startup, then per round: host-side
+agent selection and plan building, the stacked-client round on the device
+(train all clients → FedAvg → local/global evaluation batteries), one
+transfer of the round's results to the host, and recording into the same
+CSV/JSONL files and columns as the JAX package. The async engine, the robust
+dispatch (faults, screening, retries), forensics, the health sentinel,
+telemetry and round overlap are ROADMAP A13-A17; config.check_ported
+rejects their knobs.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import random
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from dba_mod_tpu_torch import config as cfg
+from dba_mod_tpu_torch import checkpoint as ckpt
+from dba_mod_tpu_torch.data.batching import build_batch_plan, build_eval_plan
+from dba_mod_tpu_torch.data.datasets import load_image_dataset
+from dba_mod_tpu_torch.data.partition import (equal_split_indices,
+                                              poison_test_indices,
+                                              sample_dirichlet_indices)
+from dba_mod_tpu_torch.fl.device_data import make_image_device_data
+from dba_mod_tpu_torch.fl.rounds import EvalPlans, RoundEngine
+from dba_mod_tpu_torch.fl.selection import select_agents
+from dba_mod_tpu_torch.fl.state import build_client_tasks
+from dba_mod_tpu_torch.models import build_model
+from dba_mod_tpu_torch.utils.device import pin_float32_math, resolve_device
+from dba_mod_tpu_torch.utils.html import dict_html
+from dba_mod_tpu_torch.utils.recorder import Recorder
+
+logger = logging.getLogger("dba_mod_tpu_torch")
+
+
+def to_host(tree: Any) -> Any:
+    """Copy a payload tree (NamedTuples, lists, tuples, dicts of tensors)
+    to numpy — the round's one device→host transfer."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_host(t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    return tree
+
+
+@dataclasses.dataclass
+class RoundInFlight:
+    """Device handles + host context of a dispatched round, awaiting its one
+    blocking transfer in `finalize_round`."""
+    epoch: int
+    t0: float                    # perf_counter at dispatch start
+    seg_epochs: List[int]
+    agent_names: List[Any]
+    adv_names: List[Any]
+    tasks_list: List[Any]
+    mask_list: List[Any]
+    payload: Any
+    dispatch_time: float = 0.0
+
+
+class Experiment:
+    def __init__(self, params: cfg.Params, save_results: bool = True,
+                 device: str | torch.device = "cuda"):
+        cfg.check_ported(params.raw)
+        self.params = params
+        self.device = resolve_device(device)
+        # compute_dtype is float32 (check_ported rejects bf16): pin cuDNN
+        # and cuBLAS to full float32, as the JAX reference computes
+        pin_float32_math()
+        self.folder: Optional[Path] = (params.make_run_folder()
+                                       if save_results else None)
+        if self.folder is not None:
+            (self.folder / "params.html").write_text(
+                dict_html(params.raw, params.current_time))
+        self.recorder = Recorder(self.folder,
+                                 tensorboard=bool(params.get("tensorboard")))
+        self.model_def = build_model(params)
+        seed = int(params.get("random_seed", 1))
+        self.select_rng = random.Random(seed)
+        self.plan_rng = np.random.RandomState(seed)
+        # the DP-noise stream (diff_privacy); jax.random and torch draw
+        # different numbers from one seed
+        self.noise_gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        self._load_data_and_partition(seed)
+
+        # Fixed plan shape across rounds (the JAX package compiles once)
+        max_client = max((len(v) for v in self.client_indices.values()),
+                         default=1)
+        b = int(params["batch_size"])
+        self.steps_per_epoch = max(1, int(np.ceil(max_client / b)))
+        self.is_poison_run = bool(params["is_poison"])
+        self.epochs_max = (max(int(params["internal_epochs"]),
+                               int(params["internal_poison_epochs"]))
+                           if self.is_poison_run
+                           else int(params["internal_epochs"]))
+
+        # Global model: fresh init or named resume (image_helper.py:56-67)
+        self.global_vars = self.model_def.init_vars(seed, self.device)
+        self.start_epoch = 1
+        if params.resume_mode == "named":
+            path = (Path(str(params.get("checkpoint_dir", "saved_models")))
+                    / str(params["resumed_model_name"]))
+            # integrity gate: verified → load; manifest-less (pretrain) →
+            # load unverified, the reference behavior; corrupt → the newest
+            # verified same-name sibling
+            resume_path = ckpt.resolve_verified(path)
+            self.global_vars, saved_epoch, saved_lr = ckpt.load_checkpoint(
+                resume_path, self.global_vars)
+            self.start_epoch = saved_epoch + 1
+            self.params.raw["lr"] = saved_lr
+            logger.info("resumed %s: lr=%s start_epoch=%d", resume_path,
+                        saved_lr, self.start_epoch)
+
+        self.interval = int(params["aggr_epoch_interval"])
+        self.engine = RoundEngine(params, self.model_def, self.device_data,
+                                  self.eval_plans,
+                                  num_segments=self.interval)
+        self.local_eval = bool(params.get("local_eval", True))
+        self.last_is_updated = True
+        self.last_global_loss = float("inf")  # feeds the best-val checkpoint
+        self.best_loss = float("inf")         # helper.py:433, main.py:120
+        self.last_backdoor_acc: Optional[float] = None
+        # Per-round step-count bucketing: size the plan to the round's own
+        # max client, quantized to _STEP_BUCKET (identical numerics: dropped
+        # steps were fully-masked no-ops)
+        self.dynamic_steps = bool(params.get("dynamic_steps", False))
+
+    # ------------------------------------------------------------------ data
+    def _load_data_and_partition(self, seed: int):
+        params = self.params
+        eb = int(params.get("eval_batch_size", 0) or
+                 params["test_batch_size"])
+        data = self.image_data = load_image_dataset(params)
+        self.device_data = make_image_device_data(data, params, self.device)
+        if params["sampling_dirichlet"]:
+            indices = sample_dirichlet_indices(
+                data.train_labels,
+                int(params["number_of_total_participants"]),
+                float(params["dirichlet_alpha"]),
+                py_rng=random.Random(seed),
+                np_rng=np.random.RandomState(seed))
+        else:
+            indices = equal_split_indices(
+                len(data.train_labels),
+                int(params["number_of_total_participants"]),
+                py_rng=random.Random(seed))
+        self.client_indices = indices
+        self.client_slots = {name: 0 for name in indices}
+        if params["is_random_namelist"]:
+            self.participants = list(
+                range(int(params["number_of_total_participants"])))
+        else:
+            self.participants = list(params["participants_namelist"])
+        self.benign_names = sorted(
+            set(self.participants) - set(params.adversary_list))
+        self.num_participants = int(params["number_of_total_participants"])
+
+        clean = build_eval_plan(np.arange(len(data.test_labels)), eb)
+        poison = build_eval_plan(
+            poison_test_indices(data.test_labels,
+                                int(params["poison_label_swap"])), eb)
+
+        def dev(a):
+            return torch.from_numpy(np.asarray(a)).to(self.device)
+
+        self.eval_plans = EvalPlans(
+            clean_idx=dev(clean.idx),
+            clean_slots=dev(np.zeros_like(clean.idx)),
+            clean_mask=dev(clean.mask),
+            poison_idx=dev(poison.idx),
+            poison_slots=dev(np.zeros_like(poison.idx)),
+            poison_mask=dev(poison.mask))
+
+    # ----------------------------------------------------------------- round
+    _STEP_BUCKET = 2       # quantum of the per-round step-count buckets
+    _STEP_BUCKET_MIN = 8   # floor: tiny rounds share one shape
+
+    def _bucket_steps(self, s: int) -> int:
+        b = self._STEP_BUCKET
+        s = max(((s + b - 1) // b) * b, self._STEP_BUCKET_MIN)
+        return min(s, max(self.steps_per_epoch, 1))
+
+    def build_static_round_inputs(self, epoch: int):
+        """Round inputs at the STATIC plan shape, for diagnostics that call
+        the engine directly. Consumes the experiment's selection/plan RNG
+        streams. Returns (tasks_seq, idx_seq, mask_seq, num_samples) — one
+        host ClientTask per segment and [1, C, E, S, B] numpy plans."""
+        params = self.params
+        agent_names, _ = select_agents(params, epoch, self.participants,
+                                       self.benign_names, self.select_rng)
+        slots = np.array([self.client_slots[n] for n in agent_names],
+                         np.int64)
+        tasks = build_client_tasks(params, agent_names, epoch, slots,
+                                   self.epochs_max)
+        plan = build_batch_plan(
+            [self.client_indices[n] for n in agent_names],
+            [int(e) for e in tasks.num_epochs], int(params["batch_size"]),
+            self.plan_rng, min_steps=self.steps_per_epoch,
+            min_epochs=self.epochs_max)
+        return ([tasks], plan.idx[None], plan.mask[None],
+                plan.num_samples.astype(np.float32))
+
+    def run_round(self, epoch: int) -> Dict[str, Any]:
+        return self.finalize_round(self.dispatch_round(epoch))
+
+    def dispatch_round(self, epoch: int) -> RoundInFlight:
+        t0 = time.perf_counter()
+        fl = self._dispatch(epoch, t0)
+        fl.dispatch_time = time.perf_counter() - t0
+        return fl
+
+    def _dispatch(self, epoch: int, t0: float) -> RoundInFlight:
+        """Host-side planning + the round's device work; the results stay
+        on the device until `finalize_round`."""
+        params = self.params
+        agent_names, adv_names = select_agents(
+            params, epoch, self.participants, self.benign_names,
+            self.select_rng)
+        logger.info("Server Epoch:%d choose agents: %s", epoch, agent_names)
+        slots = np.array([self.client_slots[n] for n in agent_names],
+                         np.int64)
+        # one segment per global epoch in the aggregation interval
+        # (image_train.py:50: the local model trains continuously across the
+        # interval; the server applies the summed update once)
+        seg_epochs = list(range(epoch, epoch + self.interval))
+        if self.dynamic_steps:
+            b = int(params["batch_size"])
+            round_max = max((len(self.client_indices[n])
+                             for n in agent_names), default=1)
+            min_steps = self._bucket_steps(
+                max(1, int(np.ceil(round_max / b))))
+        else:
+            min_steps = self.steps_per_epoch
+        tasks_list, idx_list, mask_list = [], [], []
+        for ep in seg_epochs:
+            tasks_s = build_client_tasks(params, agent_names, ep, slots,
+                                         self.epochs_max)
+            plan = build_batch_plan(
+                [self.client_indices[n] for n in agent_names],
+                [int(e) for e in tasks_s.num_epochs],
+                int(params["batch_size"]), self.plan_rng,
+                min_steps=min_steps, min_epochs=self.epochs_max)
+            tasks_list.append(tasks_s)
+            idx_list.append(plan.idx)
+            mask_list.append(plan.mask)
+        new_vars, payload = self.engine.round_fn(
+            self.global_vars, tasks_list, np.stack(idx_list),
+            np.stack(mask_list), self.noise_gen)
+        self.global_vars = new_vars
+        return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
+                             agent_names=agent_names, adv_names=adv_names,
+                             tasks_list=tasks_list, mask_list=mask_list,
+                             payload=payload)
+
+    def finalize_round(self, fl: RoundInFlight) -> Dict[str, Any]:
+        t_fin = time.perf_counter()
+        # the round's one blocking transfer
+        (locals_, globals_, metrics, delta_norms, wv, alpha,
+         batches, is_updated, seg_locals, rstats,
+         fstats) = to_host(fl.payload)
+        finalize_time = time.perf_counter() - t_fin
+        times = {"round_time": time.perf_counter() - fl.t0,
+                 "dispatch_time": fl.dispatch_time,
+                 "finalize_time": finalize_time}
+        self.last_is_updated = bool(is_updated)
+        self.last_global_loss = float(globals_.clean.loss)
+        if self.is_poison_run:
+            self.last_backdoor_acc = float(globals_.poison.acc)
+        robust = {"n_quarantined": 0, "n_dropped": 0, "n_retries": 0,
+                  "degraded": False}
+        self._record(fl.epoch, fl.seg_epochs, fl.agent_names, fl.adv_names,
+                     fl.tasks_list, metrics, locals_, globals_, delta_norms,
+                     wv, alpha, times, batches, fl.mask_list, seg_locals,
+                     robust)
+        return {"epoch": fl.epoch, "agents": fl.agent_names,
+                "global_acc": float(globals_.clean.acc),
+                "backdoor_acc": (float(globals_.poison.acc)
+                                 if self.is_poison_run else None),
+                **times, **robust}
+
+    # ------------------------------------------------------------- recording
+    def _record(self, epoch, seg_epochs, agent_names, adv_names, tasks_list,
+                metrics, locals_, globals_, delta_norms, wv, alpha, times,
+                batches=None, mask_list=None, seg_locals=None, robust=None):
+        # metrics leaves are [I, C, E]; tasks_list one ClientTask per segment.
+        # Local clean evals: final segment from locals_, intermediate
+        # segments (interval > 1) from seg_locals — matching the reference's
+        # per-global-epoch cadence (image_train.py:268-271, :150-155). The
+        # poison battery stays round-final: the reference runs it in the
+        # poison branch against the round's submitted update.
+        params = self.params
+        rec = self.recorder
+        tasks = tasks_list[-1]
+        # round-final rows carry the round's LAST global epoch, like the
+        # reference's temp_global_epoch = epoch + interval - 1 (main.py:196)
+        final_ep = seg_epochs[-1]
+        # per-client flags hold if ANY segment of the round poisoned
+        # (a client may poison at epoch 3 of a (3,4) interval round)
+        poisoning_any = np.zeros(len(agent_names), bool)
+        adv_slot_any = np.full(len(agent_names), -1, np.int64)
+        for t in tasks_list:
+            poisoning_any |= np.asarray(t.poisoning_per_batch)[
+                :len(agent_names)] > 0
+            adv_slot_any = np.maximum(adv_slot_any,
+                                      np.asarray(t.adv_slot)
+                                      [:len(agent_names)])
+        for c, name in enumerate(agent_names):
+            for s, ep in enumerate(seg_epochs):
+                n_e = int(tasks_list[s].num_epochs[c])
+                for e in range(n_e):
+                    count = max(float(metrics.count[s, c, e]), 1.0)
+                    rec.add_train(name, (ep - 1) * n_e + e + 1, ep, e + 1,
+                                  float(metrics.loss_sum[s, c, e]) / count,
+                                  100.0 * float(metrics.correct[s, c, e])
+                                  / count,
+                                  int(metrics.correct[s, c, e]), int(count))
+                if batches is not None:
+                    # [I, C, E*S] per-batch channels; only steps whose batch
+                    # mask is non-empty ran (padded epochs/steps are no-ops).
+                    # The loss channel is benign-only: the reference calls
+                    # train_batch_vis in the benign branch alone
+                    # (image_train.py:225-228), while distance is tracked in
+                    # both branches (:107-112, :235-240).
+                    bloss, bdist = batches
+                    S = mask_list[s].shape[2]
+                    valid = mask_list[s][c].any(axis=-1).reshape(-1)  # [E*S]
+                    seg_poisons = (np.asarray(
+                        tasks_list[s].poisoning_per_batch)[c] > 0)
+                    want_loss = (bool(params.get("vis_train_batch_loss"))
+                                 and not seg_poisons)
+                    want_dist = bool(params.get("batch_track_distance"))
+                    for st in np.nonzero(valid)[0]:
+                        e_i, b_i = int(st) // S, int(st) % S
+                        tle = (ep - 1) * n_e + e_i + 1
+                        if want_loss:
+                            rec.add_batch_loss(name, tle, ep, e_i + 1, b_i, S,
+                                               float(bloss[s, c, st]))
+                        if want_dist:
+                            rec.add_batch_distance(
+                                name, tle, ep, e_i + 1, b_i, S,
+                                float(bdist[s, c, st]))
+            poisoning = bool(poisoning_any[c])
+            # the FINAL segment's clean row gates on that segment's own
+            # poisoning flag (a client may poison epoch 3 of a (3,4) round
+            # and still get its benign epoch-4 row, image_train.py:267-271)
+            final_seg_poisons = bool(
+                np.asarray(tasks_list[-1].poisoning_per_batch)[c] > 0)
+            baseline = bool(params["baseline"])
+            if seg_locals is not None:
+                # intermediate-segment rows (interval > 1): the reference
+                # runs the whole battery inside the per-global-epoch loop —
+                # same gating as the final segment below
+                for s, seg_ev in enumerate(seg_locals):
+                    ep_s = seg_epochs[s]
+                    seg_poisons = (np.asarray(
+                        tasks_list[s].poisoning_per_batch)[c] > 0)
+                    if not (seg_poisons and baseline):
+                        # image_train.py:148-155 gating
+                        rec.add_test(name, ep_s,
+                                     float(seg_ev.clean.loss[c]),
+                                     float(seg_ev.clean.acc[c]),
+                                     int(seg_ev.clean.correct[c]),
+                                     int(seg_ev.clean.count[c]))
+                    if seg_poisons and self.is_poison_run:
+                        if not baseline:  # pre-scale row (:157-164)
+                            rec.add_poisontest(
+                                name, ep_s,
+                                float(seg_ev.poison_pre.loss[c]),
+                                float(seg_ev.poison_pre.acc[c]),
+                                int(seg_ev.poison_pre.correct[c]),
+                                int(seg_ev.poison_pre.count[c]))
+                        # post-scale row (:275-282)
+                        rec.add_poisontest(
+                            name, ep_s,
+                            float(seg_ev.poison_post.loss[c]),
+                            float(seg_ev.poison_post.acc[c]),
+                            int(seg_ev.poison_post.correct[c]),
+                            int(seg_ev.poison_post.count[c]))
+                    if (self.is_poison_run and int(np.asarray(
+                            tasks_list[s].adv_slot)[c]) >= 0):
+                        # per-agent trigger row runs for every adversary
+                        # every global epoch (:285-295)
+                        rec.add_triggertest(
+                            name, f"{name}_trigger", "", ep_s,
+                            float(seg_ev.agent_trigger.loss[c]),
+                            float(seg_ev.agent_trigger.acc[c]),
+                            int(seg_ev.agent_trigger.correct[c]),
+                            int(seg_ev.agent_trigger.count[c]))
+            if locals_ is not None:
+                lr = locals_
+                # the local clean eval for a poisoning client happens inside
+                # `if not baseline` in the reference (image_train.py:148-155);
+                # benign clients always get one (:267-271)
+                if not (final_seg_poisons and baseline):
+                    rec.add_test(name, final_ep, float(lr.clean.loss[c]),
+                                 float(lr.clean.acc[c]),
+                                 int(lr.clean.correct[c]),
+                                 int(lr.clean.count[c]))
+                if poisoning and self.is_poison_run:
+                    if not baseline:
+                        rec.add_poisontest(name, final_ep,
+                                           float(lr.poison_pre.loss[c]),
+                                           float(lr.poison_pre.acc[c]),
+                                           int(lr.poison_pre.correct[c]),
+                                           int(lr.poison_pre.count[c]))
+                    rec.add_poisontest(name, final_ep,
+                                       float(lr.poison_post.loss[c]),
+                                       float(lr.poison_post.acc[c]),
+                                       int(lr.poison_post.correct[c]),
+                                       int(lr.poison_post.count[c]))
+                if (self.is_poison_run and
+                        int(adv_slot_any[c]) >= 0):
+                    rec.add_triggertest(
+                        name, f"{name}_trigger", "", final_ep,
+                        float(lr.agent_trigger.loss[c]),
+                        float(lr.agent_trigger.acc[c]),
+                        int(lr.agent_trigger.correct[c]),
+                        int(lr.agent_trigger.count[c]))
+            if poisoning and not baseline:
+                rec.scale_temp_one_row.extend(
+                    [epoch, round(float(delta_norms[c]), 4)])
+
+        rec.add_test("global", final_ep, float(globals_.clean.loss),
+                     float(globals_.clean.acc), int(globals_.clean.correct),
+                     int(globals_.clean.count))
+        if self.is_poison_run:
+            g = globals_
+            rec.add_poisontest("global", final_ep, float(g.poison.loss),
+                               float(g.poison.acc), int(g.poison.correct),
+                               int(g.poison.count))
+            rec.add_triggertest("global", "combine", "", final_ep,
+                                float(g.poison.loss), float(g.poison.acc),
+                                int(g.poison.correct), int(g.poison.count))
+            if params.is_centralized_attack:
+                # gated on centralized_test_trigger (main.py:226)
+                names = [f"global_in_index_{j}_trigger"
+                         for j in range(self.engine.num_global_triggers)]
+            else:
+                names = [f"global_in_{a}_trigger"
+                         for a in params.adversary_list]
+            for j, tname in enumerate(names):
+                rec.add_triggertest(
+                    "global", tname, "", final_ep,
+                    float(g.per_trigger.loss[j]), float(g.per_trigger.acc[j]),
+                    int(g.per_trigger.correct[j]),
+                    int(g.per_trigger.count[j]))
+        if rec.scale_temp_one_row:
+            rec.scale_temp_one_row.append(round(float(globals_.clean.acc), 4))
+        if self.params.aggregation != cfg.AGGR_MEAN:
+            rec.add_weight_result(list(agent_names), wv.tolist(),
+                                  alpha.tolist(), epoch=epoch)
+        rec.add_round_json(
+            epoch=epoch, agents=[str(a) for a in agent_names],
+            adversaries=[str(a) for a in adv_names],
+            is_updated=self.last_is_updated,
+            global_acc=float(globals_.clean.acc),
+            global_loss=float(globals_.clean.loss),
+            backdoor_acc=(float(globals_.poison.acc)
+                          if self.is_poison_run else None),
+            **times, **(robust or {}))
+        rec.save(self.is_poison_run)
+
+    # ------------------------------------------------------------------- run
+    def save_model(self, epoch: int) -> None:
+        """Checkpoint the round's post-aggregation global state:
+        model_last, plus .epoch_N for save_on_epochs and .best whenever the
+        global eval loss improves (helper.py:433-435), each with a
+        manifest when checkpoint_manifests is on."""
+        params = self.params
+        if not params["save_model"] or self.folder is None:
+            return
+        path = self.folder / "model_last.pt.tar"
+        lr = float(params["lr"])
+        written = [path]
+        if epoch in list(params["save_on_epochs"]):
+            written.append(Path(str(path) + f".epoch_{epoch}"))
+        if self.last_global_loss < self.best_loss:
+            written.append(Path(str(path) + ".best"))
+            self.best_loss = self.last_global_loss
+        for p in written:
+            ckpt.save_checkpoint(p, self.global_vars, epoch, lr)
+            if bool(params.get("checkpoint_manifests", True)):
+                ckpt.write_manifest(p, epoch)
+
+    def run(self, epochs: Optional[int] = None) -> Dict[str, Any]:
+        """Run rounds start_epoch..epochs (the config's when None). The
+        JAX package's run() adds the graceful-stop guard, async-save waits
+        and telemetry teardown around this loop (ROADMAP A15/A17)."""
+        return self._run_rounds(epochs)
+
+    def _run_rounds(self, epochs: Optional[int] = None) -> Dict[str, Any]:
+        last: Dict[str, Any] = {}
+        end = epochs if epochs is not None else int(self.params["epochs"])
+        for epoch in range(self.start_epoch, end + 1, self.interval):
+            last = self.run_round(epoch)
+            self.save_model(epoch)
+            logger.info("epoch %d done in %.2fs acc=%.2f backdoor=%s",
+                        epoch, last["round_time"], last["global_acc"],
+                        last["backdoor_acc"])
+        return last

@@ -1,0 +1,234 @@
+"""Fused per-step state update: torch-SGD + validity select + FoolsGold
+accumulation + BN select, as ONE kernel launch over the whole stacked client
+state.
+
+Counterpart of ``dba_mod_tpu/ops/fused_update.py``. Every local step of the
+client loop (fl/client.py) ends in one call of :func:`fused_step_update` over
+all C clients' leaves:
+
+    g'  = g + weight_decay * w
+    m'  = momentum * m + g'
+    w'  = w - lr[c] * m'                   (per-client lr)
+    out = where(valid[c], new, old)        for w, m, fg (+= g), bn (new)
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+``csrc/fused_update.cu`` (built at first use, see utils/cuda_build.py); it
+updates w, m, fg and bn_old IN PLACE, where the JAX op is functional — the
+port saves writing a second copy of the client state every step. On a CPU
+tensor the wrapper computes :func:`fused_step_update_reference`, the plain
+PyTorch version, and copies its result into the same tensors. There is no
+fallback from the kernel to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Dict, Mapping, Tuple
+
+import torch
+
+Tree = Mapping[str, torch.Tensor]
+
+_SOURCE = "fused_update.cu"
+_MAX_LEAVES = 120        # csrc/fused_update.cu kMaxLeaves
+_TILE = 4096             # csrc/fused_update.cu kTile
+_KIND = {"sgd": 0, "acc": 1, "sel": 2}
+
+_lib = None
+_Table = None
+
+
+# ---------------------------------------------------------------- plain version
+def fused_step_update_reference(lr: torch.Tensor, valid: torch.Tensor,
+                                params: Tree, grads: Tree, mom: Tree,
+                                fg: Tree, bn_new: Tree, bn_old: Tree, *,
+                                momentum: float, weight_decay: float
+                                ) -> Tuple[Dict, Dict, Dict, Dict]:
+    """The JAX ``reference`` (dba_mod_tpu/ops/fused_update.py:166-179) in
+    torch ops, same order of operations, each product its own op. Returns
+    (new_params, new_mom, new_fg, new_bn); `fg` empty = FoolsGold off."""
+    keep0 = valid != 0
+
+    def per_client(v, like):
+        return v.reshape((v.shape[0],) + (1,) * (like.dim() - 1))
+
+    new_p, new_m, new_f, new_b = {}, {}, {}, {}
+    for k, w in params.items():
+        g, m = grads[k], mom[k]
+        keep = per_client(keep0, w)
+        g2 = g + weight_decay * w
+        m2 = momentum * m + g2
+        w2 = w - per_client(lr, w) * m2
+        new_p[k] = torch.where(keep, w2, w)
+        new_m[k] = torch.where(keep, m2, m)
+    for k, f in fg.items():
+        new_f[k] = torch.where(per_client(keep0, f), f + grads[k], f)
+    for k, b in bn_old.items():
+        new_b[k] = torch.where(per_client(keep0, b), bn_new[k], b)
+    return new_p, new_m, new_f, new_b
+
+
+# ---------------------------------------------------------------- the kernel
+def _load():
+    """Build + load the kernel library and define the ctypes mirror of its
+    by-value leaf table (at first CUDA use, never at import)."""
+    global _lib, _Table
+    if _lib is not None:
+        return _lib
+    from dba_mod_tpu_torch.utils.cuda_build import load_library
+    lib = load_library(_SOURCE)
+    vp = ctypes.c_void_p
+
+    class LeafTable(ctypes.Structure):
+        _fields_ = [("a", vp * _MAX_LEAVES), ("b", vp * _MAX_LEAVES),
+                    ("c", vp * _MAX_LEAVES), ("n", ctypes.c_int * _MAX_LEAVES),
+                    ("tile_start", ctypes.c_int * (_MAX_LEAVES + 1)),
+                    ("kind", ctypes.c_ubyte * _MAX_LEAVES),
+                    ("num_leaves", ctypes.c_int)]
+
+    for fn in ("fused_update_max_leaves", "fused_update_tile",
+               "fused_update_table_bytes"):
+        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).argtypes = []
+    if (lib.fused_update_max_leaves() != _MAX_LEAVES
+            or lib.fused_update_tile() != _TILE
+            or lib.fused_update_table_bytes() != ctypes.sizeof(LeafTable)):
+        raise RuntimeError("csrc/fused_update.cu and ops/fused_update.py "
+                           "disagree on the leaf-table layout")
+    lib.fused_step_update_launch.restype = ctypes.c_int
+    lib.fused_step_update_launch.argtypes = [
+        vp, vp, vp, ctypes.c_int, ctypes.c_float, ctypes.c_float, vp]
+    _Table = LeafTable
+    _lib = lib
+    return lib
+
+
+def _tables(entries, C) -> list:
+    """entries: [(kind, a, b, c)] of [C, ...] tensors -> the kernel's leaf
+    tables, _MAX_LEAVES entries each (one table for the CIFAR main path's
+    102 leaves)."""
+    _load()
+    tables = []
+    for start in range(0, len(entries), _MAX_LEAVES):
+        chunk = entries[start:start + _MAX_LEAVES]
+        t = _Table()
+        tiles = 0
+        for i, (kind, a, b, c) in enumerate(chunk):
+            n = a.numel() // C
+            t.a[i] = a.data_ptr()
+            t.b[i] = b.data_ptr()
+            t.c[i] = c.data_ptr() if c is not None else 0
+            t.n[i] = n
+            t.kind[i] = _KIND[kind]
+            t.tile_start[i] = tiles
+            tiles += C * -(-n // _TILE)
+        t.tile_start[len(chunk)] = tiles
+        t.num_leaves = len(chunk)
+        tables.append(t)
+    return tables
+
+
+def _launch(tables, lr, valid, C, momentum, weight_decay) -> None:
+    """One kernel launch per table, on the current stream."""
+    stream = torch.cuda.current_stream(lr.device).cuda_stream
+    for t in tables:
+        err = _lib.fused_step_update_launch(
+            ctypes.byref(t), lr.data_ptr(), valid.data_ptr(), C,
+            float(momentum), float(weight_decay), stream)
+        if err != 0:
+            raise RuntimeError(f"fused_step_update launch failed: CUDA "
+                               f"error {err}")
+        fused_step_update.launches += 1
+
+
+def _check(lr, valid, groups) -> int:
+    if lr.dim() != 1 or valid.shape != lr.shape:
+        raise ValueError(f"lr and valid must both be [C]; got "
+                         f"{tuple(lr.shape)} and {tuple(valid.shape)}")
+    C = lr.shape[0]
+    dev = lr.device
+    for name, ts in groups:
+        for t in ts:
+            if t.device != dev:
+                raise ValueError(f"{name}: tensor on {t.device}, lr on {dev}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: dtype {t.dtype}, need float32")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: tensor is not contiguous")
+            if t.dim() < 1 or t.shape[0] != C:
+                raise ValueError(f"{name}: leading dim of {tuple(t.shape)} "
+                                 f"is not the client count {C}")
+    return C
+
+
+def _validated(lr, valid, params, grads, mom, fg, bn_new, bn_old):
+    """Checks the trees and pairs their leaves by key, never by position.
+    Returns (C, params, grads, mom, fg, bn_new, bn_old) as lists."""
+    if set(grads) != set(params) or set(mom) != set(params) or (
+            fg and set(fg) != set(params)) or set(bn_new) != set(bn_old):
+        raise ValueError("fused_step_update: the trees' keys differ")
+    pl = list(params.values())
+    gl, ml = [grads[k] for k in params], [mom[k] for k in params]
+    fl = [fg[k] for k in params] if fg else []
+    bol = list(bn_old.values())
+    bnl = [bn_new[k] for k in bn_old]
+    C = _check(lr, valid, [("lr", [lr]), ("valid", [valid]), ("params", pl),
+                           ("grads", gl), ("mom", ml), ("fg", fl),
+                           ("bn_new", bnl), ("bn_old", bol)])
+    for a, b in list(zip(pl, gl)) + list(zip(pl, ml)) + list(zip(fl, pl)) + \
+            list(zip(bnl, bol)):
+        if a.shape != b.shape:
+            raise ValueError(f"fused_step_update: shape {tuple(a.shape)} "
+                             f"vs {tuple(b.shape)}")
+    return C, pl, gl, ml, fl, bnl, bol
+
+
+def prepare_launch(lr: torch.Tensor, valid: torch.Tensor, params: Tree,
+                   grads: Tree, mom: Tree, fg: Tree, bn_new: Tree,
+                   bn_old: Tree, *, momentum: float,
+                   weight_decay: float) -> Callable[[], None]:
+    """The wrapper's host work on CUDA tensors (checks, leaf tables), done
+    once: the returned function launches the kernel over the same tensors.
+    fused_step_update is prepare_launch(...)(); the split lets the kernel's
+    device time be measured apart from the wrapper's host time."""
+    if lr.device.type != "cuda":
+        raise ValueError(f"prepare_launch: tensors on {lr.device}, the "
+                         f"kernel needs CUDA tensors")
+    # The config keys fused_updates / fused_interpret are not read here:
+    # on the card the kernel is the only update path, and interpret mode is
+    # a Pallas notion with no CUDA counterpart.
+    C, pl, gl, ml, fl, bnl, bol = _validated(lr, valid, params, grads, mom,
+                                             fg, bn_new, bn_old)
+    entries = [("sgd", w, g, m) for w, g, m in zip(pl, gl, ml)]
+    entries += [("acc", f, g, None) for f, g in zip(fl, gl)]
+    entries += [("sel", bo, bn, None) for bn, bo in zip(bnl, bol)]
+    tables = _tables(entries, C)
+    return lambda: _launch(tables, lr, valid, C, momentum, weight_decay)
+
+
+def fused_step_update(lr: torch.Tensor, valid: torch.Tensor, params: Tree,
+                      grads: Tree, mom: Tree, fg: Tree, bn_new: Tree,
+                      bn_old: Tree, *, momentum: float,
+                      weight_decay: float) -> None:
+    """Apply one step's state update to every client IN PLACE.
+
+    lr, valid: float32 [C] (valid is 1.0 / 0.0). params/grads/mom: same-keyed
+    dicts of [C, ...] float32 leaves; fg: the FoolsGold accumulators or an
+    empty dict; bn_new/bn_old: the BN running stats (empty for a model
+    without BN). params, mom, fg and bn_old are updated in place."""
+    if lr.device.type == "cuda":
+        prepare_launch(lr, valid, params, grads, mom, fg, bn_new, bn_old,
+                       momentum=momentum, weight_decay=weight_decay)()
+        return
+    if lr.device.type != "cpu":
+        raise ValueError(f"fused_step_update: unsupported device {lr.device}")
+    _validated(lr, valid, params, grads, mom, fg, bn_new, bn_old)
+    new_p, new_m, new_f, new_b = fused_step_update_reference(
+        lr, valid, params, grads, mom, fg, bn_new, bn_old,
+        momentum=momentum, weight_decay=weight_decay)
+    for dst, src in ((params, new_p), (mom, new_m), (fg, new_f),
+                     (bn_old, new_b)):
+        for k, t in src.items():
+            dst[k].copy_(t)
+
+
+fused_step_update.launches = 0

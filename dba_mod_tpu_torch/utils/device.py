@@ -1,0 +1,32 @@
+"""Device selection for the port's entry points.
+
+The entry points run on the card unless the caller asks for the CPU. Asking
+for CUDA on a machine without a card raises: the port never falls back to
+the CPU on its own.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(name: str | torch.device = "cuda") -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' was requested but torch.cuda.is_available() "
+                "is False; pass device='cpu' (--device cpu) to run on the "
+                "CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {name!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def pin_float32_math() -> None:
+    """float32 runs in full float32 on the card. cuDNN convolutions default
+    to TF32 (about three decimal digits), and the JAX reference is f32, so
+    both TF32 switches are turned off."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,0 +1,210 @@
+"""Result recording with column-schema parity to the reference's CSVs
+(utils/csv_record.py), plus a JSONL metrics stream — the PyTorch port's own
+copy of dba_mod_tpu/utils/recorder.py: the same files, columns and rows.
+Its TensorBoard scalar mirror (flax's writer) is ROADMAP A17, and the
+auto-resume reload of a run folder's streams is A15.
+
+Like the reference, `save()` rewrites every CSV each round
+(csv_record.py:21-59); every rewrite is atomic (tempfile in the run folder +
+os.replace), and state lives on an instance, not module globals. The
+per-batch channels (train_batch/distance) land in CSVs of their own — the
+reference only plotted them.
+"""
+from __future__ import annotations
+
+import csv
+import json
+import os
+import time
+from pathlib import Path
+from typing import Any, List, Optional
+
+TRAIN_HEADER = ["local_model", "round", "epoch", "internal_epoch",
+                "average_loss", "accuracy", "correct_data", "total_data"]
+TEST_HEADER = ["model", "epoch", "average_loss", "accuracy", "correct_data",
+               "total_data"]
+TRIGGER_HEADER = ["model", "trigger_name", "trigger_value", "epoch",
+                  "average_loss", "accuracy", "correct_data", "total_data"]
+BATCH_HEADER = ["local_model", "round", "epoch", "internal_epoch", "batch",
+                "value"]
+# per-round robustness columns (fl/faults.py + the quarantine pass in
+# fl/rounds.py) so PARITY/trajectory harnesses can plot attack success
+# under faults; all-zero when the fault layer is off. dispatch_time /
+# finalize_time split round_time into host-planning+enqueue vs the round's
+# blocking fetch (perf_counter durations; under pipeline_rounds round_time
+# spans the overlap with the next round's dispatch — the split columns are
+# the honest per-phase numbers)
+ROUND_HEADER = ["epoch", "global_acc", "global_loss", "backdoor_acc",
+                "n_quarantined", "n_dropped", "n_retries", "degraded",
+                "round_time", "dispatch_time", "finalize_time"]
+
+# wall-clock columns/keys: the ONLY recorded values allowed to differ
+# between a serial run and the same run under overlap_eval /
+# pipeline_rounds. Everything else is covered by the bit-identity
+# contract (README "Round pipelining"; tests/test_overlap.py)
+VOLATILE_KEYS = frozenset(
+    {"time", "round_time", "dispatch_time", "finalize_time"})
+
+
+def canonical_run_outputs(folder) -> dict:
+    """Wall-clock-free view of a run folder's recorded outputs, for
+    byte-level A/B comparison of two runs (the overlap_eval bit-identity
+    contract). metrics.jsonl rows and round_result.csv drop the
+    VOLATILE_KEYS columns; every other CSV is compared as raw bytes."""
+    folder = Path(folder)
+    out: dict = {}
+    mj = folder / "metrics.jsonl"
+    if mj.exists():
+        out["metrics.jsonl"] = [
+            {k: v for k, v in json.loads(line).items()
+             if k not in VOLATILE_KEYS}
+            for line in mj.read_text().splitlines() if line.strip()]
+    rr = folder / "round_result.csv"
+    if rr.exists():
+        with open(rr, newline="") as f:
+            rows = list(csv.reader(f))
+        keep = [i for i, c in enumerate(rows[0])
+                if c not in VOLATILE_KEYS] if rows else []
+        out["round_result.csv"] = [[r[i] for i in keep] for r in rows]
+    for name in ("train_result.csv", "test_result.csv",
+                 "posiontest_result.csv", "poisontriggertest_result.csv",
+                 "weight_result.csv", "scale_result.csv",
+                 "train_batch_result.csv", "distance_result.csv"):
+        p = folder / name
+        if p.exists():
+            out[name] = p.read_bytes()
+    return out
+
+
+class Recorder:
+    def __init__(self, folder: Optional[Path] = None,
+                 tensorboard: bool = False):
+        if tensorboard:
+            raise NotImplementedError(
+                "tensorboard is not ported to dba_mod_tpu_torch yet "
+                "(ROADMAP A17)")
+        self.folder = Path(folder) if folder else None
+        self.train_result: List[list] = []
+        self.test_result: List[list] = []
+        self.posiontest_result: List[list] = []   # (sic) reference file name
+        self.poisontriggertest_result: List[list] = []
+        self.weight_result: List[list] = []
+        self.scale_result: List[list] = []
+        self.scale_temp_one_row: List[Any] = []
+        self.batch_loss_result: List[list] = []
+        self.batch_distance_result: List[list] = []
+        self.round_result: List[list] = []
+        self._jsonl_rows: List[dict] = []
+
+    # ------------------------------------------------------------------ adds
+    def add_train(self, name, temp_local_epoch, epoch, internal_epoch, loss,
+                  acc, correct, total):
+        self.train_result.append([name, temp_local_epoch, epoch,
+                                  internal_epoch, loss, acc, correct, total])
+
+    def add_test(self, name, epoch, loss, acc, correct, total):
+        self.test_result.append([name, epoch, loss, acc, correct, total])
+
+    def add_poisontest(self, name, epoch, loss, acc, correct, total):
+        self.posiontest_result.append([name, epoch, loss, acc, correct,
+                                       total])
+
+    def add_triggertest(self, model, trigger_name, trigger_value, epoch, loss,
+                        acc, correct, total):
+        self.poisontriggertest_result.append(
+            [model, trigger_name, trigger_value, epoch, loss, acc, correct,
+             total])
+
+    def add_weight_result(self, names, weights, alphas, epoch=None):
+        # reference appends three rows per round (csv_record.py:61-64)
+        self.weight_result.append(list(names))
+        self.weight_result.append(list(weights))
+        self.weight_result.append(list(alphas))
+
+    def add_batch_loss(self, name, temp_local_epoch, epoch, internal_epoch,
+                       batch, steps_per_epoch, loss):
+        """Per-batch train loss (vis_train_batch_loss,
+        image_train.py:225-235)."""
+        self.batch_loss_result.append(
+            [name, temp_local_epoch, epoch, internal_epoch, batch, loss])
+
+    def add_batch_distance(self, name, temp_local_epoch, epoch,
+                           internal_epoch, batch, steps_per_epoch, dist):
+        """Per-batch post-step distance to the round anchor
+        (batch_track_distance, image_train.py:236-245)."""
+        self.batch_distance_result.append(
+            [name, temp_local_epoch, epoch, internal_epoch, batch, dist])
+
+    def add_round_json(self, **kwargs):
+        kwargs.setdefault("time", time.time())
+        self._jsonl_rows.append(kwargs)
+        if "epoch" in kwargs:
+            self.round_result.append(
+                [kwargs["epoch"], kwargs.get("global_acc"),
+                 kwargs.get("global_loss"), kwargs.get("backdoor_acc"),
+                 int(kwargs.get("n_quarantined", 0) or 0),
+                 int(kwargs.get("n_dropped", 0) or 0),
+                 int(kwargs.get("n_retries", 0) or 0),
+                 int(bool(kwargs.get("degraded", False))),
+                 kwargs.get("round_time"),
+                 kwargs.get("dispatch_time"),
+                 kwargs.get("finalize_time")])
+
+    # ------------------------------------------------------------------ save
+    def _atomic_write(self, name: str, emit) -> None:
+        """Crash-safe full rewrite: `emit(file)` writes into a tempfile in
+        the run folder, which is `os.replace`d over the target only on
+        success — a crash (or an exception) mid-save leaves the previously
+        saved file intact, where the old rewrite-in-place truncated it."""
+        path = self.folder / name
+        tmp = self.folder / (name + ".tmp")
+        try:
+            with open(tmp, "w", newline="") as f:
+                emit(f)
+            os.replace(tmp, path)
+        finally:
+            if tmp.exists():
+                tmp.unlink()
+
+    def save(self, is_poison: bool):
+        # the scale row closes at save time whether or not files are written
+        # (csv_record.py:44-50 semantics)
+        if self.scale_temp_one_row:
+            self.scale_result.append(list(self.scale_temp_one_row))
+            self.scale_temp_one_row.clear()
+        if self.folder is None:
+            return
+        self.folder.mkdir(parents=True, exist_ok=True)
+
+        def write(name, header, rows):
+            def emit(f):
+                w = csv.writer(f)
+                if header:
+                    w.writerow(header)
+                w.writerows(rows)
+            self._atomic_write(name, emit)
+
+        write("train_result.csv", TRAIN_HEADER, self.train_result)
+        write("test_result.csv", TEST_HEADER, self.test_result)
+        if self.weight_result:
+            write("weight_result.csv", None, self.weight_result)
+        if self.scale_result:
+            write("scale_result.csv", None, self.scale_result)
+        if self.batch_loss_result:
+            write("train_batch_result.csv", BATCH_HEADER,
+                  self.batch_loss_result)
+        if self.batch_distance_result:
+            write("distance_result.csv", BATCH_HEADER,
+                  self.batch_distance_result)
+        if self.round_result:
+            write("round_result.csv", ROUND_HEADER, self.round_result)
+        if is_poison:
+            write("posiontest_result.csv", TEST_HEADER,
+                  self.posiontest_result)
+            write("poisontriggertest_result.csv", TRIGGER_HEADER,
+                  self.poisontriggertest_result)
+
+        def emit_jsonl(f):
+            for row in self._jsonl_rows:
+                f.write(json.dumps(row) + "\n")
+        self._atomic_write("metrics.jsonl", emit_jsonl)

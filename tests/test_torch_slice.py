@@ -1,0 +1,210 @@
+"""The whole slice: one synchronous FedAvg round of the port against one
+round of the JAX package, from the same initial weights (convert.py).
+
+Both experiments are built from the same config and seed, so they draw the
+same data, partition, agents and batch plans (asserted); each then trains
+and aggregates with its own engine. Bounds are tests/test_parity_ab.py's:
+MNIST (configs/smoke_params.yaml) per-client deltas and the global model
+≤ 1e-6; CIFAR ResNet-18 with BatchNorm (benchmarks/parity_ab.py::CIFAR_AB)
+per client ≤ 0.1 and global ≤ 0.05 (XLA and torch convolutions sum in
+different orders and activations within that band of zero flip ReLU gates —
+see that test's docstring); accuracies within 1 point. A full
+``run_round`` on each side must also write the same recorder files with the
+same columns and row keys (canonical_run_outputs)."""
+import csv
+import io
+
+import jax
+import jax.numpy as jnp
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from benchmarks.parity_ab import CIFAR_AB
+from dba_mod_tpu.config import Params as JParams
+from dba_mod_tpu.fl.experiment import Experiment as JExperiment
+from dba_mod_tpu.fl.selection import select_agents as jselect
+from dba_mod_tpu.utils.recorder import \
+    canonical_run_outputs as j_canonical
+from dba_mod_tpu_torch import convert
+from dba_mod_tpu_torch.config import Params
+from dba_mod_tpu_torch.data.batching import build_batch_plan
+from dba_mod_tpu_torch.fl.experiment import Experiment
+from dba_mod_tpu_torch.fl.selection import select_agents
+from dba_mod_tpu_torch.fl.state import build_client_tasks
+from dba_mod_tpu_torch.models import ModelVars
+from dba_mod_tpu_torch.utils.recorder import canonical_run_outputs
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread per test (six test workers share eight cores),
+    restored afterwards so other files' tests keep torch's default."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+CONFIGS = Path(__file__).resolve().parent.parent / "configs"
+
+
+def _experiments(raw, tmp_path, save):
+    jexp = JExperiment(JParams.from_dict(dict(raw, run_dir=str(
+        tmp_path / "jax"))), save_results=save)
+    texp = Experiment(Params.from_dict(dict(raw, run_dir=str(
+        tmp_path / "torch"))), save_results=save, device="cpu")
+    jmv = jax.device_get(jexp.global_vars)
+    texp.global_vars = convert.from_jax_numpy(
+        texp.model_def.name, jmv.params, jmv.batch_stats)
+    return jexp, texp
+
+
+def _plans(exp, params, names, epoch, tasks_fn):
+    slots = np.zeros(len(names), np.int64)
+    tasks = tasks_fn(names, epoch, slots)
+    plan = build_batch_plan([exp.client_indices[n] for n in names],
+                            [int(e) for e in tasks.num_epochs],
+                            int(params["batch_size"]), exp.plan_rng,
+                            min_steps=exp.steps_per_epoch,
+                            min_epochs=exp.epochs_max)
+    return tasks, plan
+
+
+def _engine_round(jexp, texp, epoch, evals=True):
+    """One train + FedAvg round through each engine on identical inputs.
+    Returns (per-client max abs delta diffs, global max abs diff, JAX and
+    port global evals; None without `evals`)."""
+    jp, tp = jexp.params, texp.params
+    jnames, _ = jselect(jp, epoch, jexp.participants, jexp.benign_names,
+                        jexp.select_rng)
+    tnames, _ = select_agents(tp, epoch, texp.participants,
+                              texp.benign_names, texp.select_rng)
+    assert jnames == tnames
+    from dba_mod_tpu.fl.state import build_client_tasks as jtasks
+    jt, jplan = _plans(jexp, jp, jnames, epoch, lambda n, e, s: jtasks(
+        jp, n, e, s, jexp.epochs_max, None))
+    tt, tplan = _plans(texp, tp, tnames, epoch, lambda n, e, s:
+                       build_client_tasks(tp, n, e, s, texp.epochs_max))
+    np.testing.assert_array_equal(jplan.idx, tplan.idx)
+    np.testing.assert_array_equal(jplan.mask, tplan.mask)
+    C = len(jnames)
+    rng_t, rng_a = jax.random.split(jax.random.key(0))
+    train = jexp.engine.train_fn(
+        jexp.global_vars,
+        jax.tree_util.tree_map(lambda l: jnp.asarray(l)[None], jt),
+        jnp.asarray(jplan.idx[None]), jnp.asarray(jplan.mask[None]),
+        jnp.arange(C, dtype=jnp.int32), rng_t)
+    jagg = jexp.engine.aggregate_fn(
+        jexp.global_vars, jexp.fg_state, train.deltas, train.fg_grads,
+        train.fg_feature, jnp.asarray(jt.participant_id),
+        jnp.asarray(jplan.num_samples.astype(np.float32)), rng_a)
+    ttrain = texp.engine.train_fn(texp.global_vars, [tt],
+                                  tplan.idx[None], tplan.mask[None])
+    tagg = texp.engine.aggregate_fn(texp.global_vars, ttrain.deltas)
+    name = texp.model_def.name
+    jd = jax.device_get(train.deltas)
+    per_client = []
+    for c in range(C):
+        want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(
+            lambda l: l[c], (jd.params, jd.batch_stats)))
+        got = jax.tree_util.tree_leaves(convert.to_jax_numpy(
+            name, ModelVars({k: v[c] for k, v in ttrain.deltas.params.items()},
+                            {k: v[c] for k, v in
+                             ttrain.deltas.batch_stats.items()})))
+        per_client.append(max(float(np.abs(a - b).max())
+                              for a, b in zip(got, want)))
+    jg = jax.device_get(jagg.new_vars)
+    tg = convert.to_jax_numpy(name, tagg.new_vars)
+    g_diff = max(float(np.abs(a - b).max()) for a, b in zip(
+        jax.tree_util.tree_leaves(tg),
+        jax.tree_util.tree_leaves((jg.params, jg.batch_stats))))
+    jev = tev = None
+    if evals:
+        jev = jax.device_get(jexp.engine.global_evals_fn(jagg.new_vars))
+        tev = texp.engine.global_evals(tagg.new_vars)
+    jexp.global_vars, texp.global_vars = jagg.new_vars, tagg.new_vars
+    return per_client, g_diff, jev, tev
+
+
+def _check_acc(jev, tev):
+    assert abs(float(jev.clean.acc) - float(tev.clean.acc)) <= 1.0
+    assert abs(float(jev.poison.acc) - float(tev.poison.acc)) <= 1.0
+
+
+def _rows(blob):
+    return list(csv.reader(io.StringIO(blob.decode())))
+
+
+def test_mnist_smoke_round_matches_jax(tmp_path):
+    raw = yaml.safe_load(open(CONFIGS / "smoke_params.yaml"))
+    jexp, texp = _experiments(raw, tmp_path, save=True)
+    # round 3: adversary 0 poisons (multi-shot schedule from round 3)
+    per_client, g_diff, jev, tev = _engine_round(jexp, texp, 3)
+    assert max(per_client) <= 1e-6, per_client
+    assert g_diff <= 1e-6, g_diff
+    _check_acc(jev, tev)
+
+    # a full recorded round on each side: same files, columns, row keys
+    jr, tr = jexp.run_round(4), texp.run_round(4)
+    assert jr["agents"] == tr["agents"]
+    assert abs(jr["global_acc"] - tr["global_acc"]) <= 1.0
+    jo, to = j_canonical(jexp.folder), canonical_run_outputs(texp.folder)
+    assert sorted(jo) == sorted(to)
+    assert [sorted(r) for r in jo["metrics.jsonl"]] == \
+        [sorted(r) for r in to["metrics.jsonl"]]
+    for jrow, trow in zip(jo["metrics.jsonl"], to["metrics.jsonl"]):
+        for k in ("epoch", "agents", "adversaries", "is_updated"):
+            assert jrow[k] == trow[k], k
+    assert jo["round_result.csv"][0] == to["round_result.csv"][0]
+    for name in jo:
+        if name.endswith(".csv") and name != "round_result.csv":
+            jrows, trows = _rows(jo[name]), _rows(to[name])
+            assert len(jrows) == len(trows), name
+            # identity columns (model, epochs, counts) agree row by row
+            for a, b in zip(jrows, trows):
+                assert len(a) == len(b), name
+                if name in ("train_result.csv", "test_result.csv",
+                            "posiontest_result.csv"):
+                    assert a[:2] == b[:2] and a[-1] == b[-1], (name, a, b)
+
+
+def test_cifar_bn_round_matches_jax(tmp_path):
+    jexp, texp = _experiments(dict(CIFAR_AB), tmp_path, save=False)
+    per_client, g_diff, jev, tev = _engine_round(jexp, texp, 1)
+    assert max(per_client) <= 0.1, per_client
+    assert g_diff <= 0.05, g_diff
+    _check_acc(jev, tev)
+
+
+def test_cifar_bn_model_replacement_drives_running_var_negative_in_both(
+        tmp_path):
+    """FedAvg averages the BN running stats with the adversary's ×γ delta
+    (helper.py:240-257; the scaling epilogue covers the full state). At the
+    full config's γ = 100 (configs/cifar_params.yaml) that can leave a
+    running variance below zero, and the global eval loss is then NaN
+    (rsqrt of a negative). The JAX package does the same from the same
+    weights: the least running variance is negative on both sides, in the
+    same channel, and agrees to 1e-5 relative (measured: -12.67707 JAX,
+    -12.67706 port). Only γ differs from CIFAR_AB; the per-client and
+    global bounds of the γ = 2 test do not apply, since γ multiplies the
+    adversary's difference by 50."""
+    jexp, texp = _experiments(dict(CIFAR_AB, scale_weights_poison=100.0),
+                              tmp_path, save=False)
+    _engine_round(jexp, texp, 1, evals=False)
+    jg = jax.device_get(jexp.global_vars)
+    tvars = convert.to_jax_numpy(texp.model_def.name, texp.global_vars)[1]
+    leaves = []
+    for side in (jg.batch_stats, tvars):
+        flat = jax.tree_util.tree_flatten_with_path(side)[0]
+        var = {jax.tree_util.keystr(k): np.asarray(v) for k, v in flat
+               if jax.tree_util.keystr(k).endswith("['var']")}
+        name = min(var, key=lambda k: var[k].min())
+        leaves.append((name, int(var[name].argmin()),
+                       float(var[name].min())))
+    (jname, jch, jmin), (tname, tch, tmin) = leaves
+    assert jmin < 0 and tmin < 0, leaves
+    assert (jname, jch) == (tname, tch), leaves
+    assert abs(tmin - jmin) <= 1e-5 * abs(jmin), leaves
