@@ -10,20 +10,32 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    checkout (nvcc, at first use, into dba_mod_tpu_torch/_build/);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it (the CIFAR ResNet-18 state at C = 10 clients, with
-   invalid lanes, FoolsGold on and off, BN present): bitwise equal. Then its
-   device time (launches of one prepared leaf table), the wrapper's host
-   time, its bound, the plain version's time and one PyTorch library call's
-   time as a yardstick, each also as device time from torch.profiler;
+   invalid lanes, FoolsGold on and off, BN present): bitwise equal. Then,
+   FoolsGold off and on, its device time (launches of one prepared leaf
+   table), its launches per step, the wrapper's host time, its bound, the
+   plain version's time and one PyTorch library call's time as a
+   yardstick, each also as device time from torch.profiler;
 4. the main path through the CLI, dba_mod_tpu_torch.main.main: pretrain one
    round of the full-width CIFAR workload (100 participants, 10 per round,
    batch 64, 4 adversaries, synthetic CIFAR at its full size), then resume
-   it by name and train two rounds that both poison. The kernel's launch
-   count over that run must equal the local steps it ran (derived from the
-   recorded train_result.csv); the recorder files must exist and the
-   accuracies and the saved global model must be finite;
+   it by name and train two FedAvg rounds that both poison. The kernel's
+   launch count over that run must equal the local steps it ran (derived
+   from the recorded train_result.csv); the recorder files must exist and
+   the accuracies and the saved global model must be finite;
+4b. the robust server on the same workload: two poisoned rounds each under
+   FoolsGold and RFA through the CLI, resumed from phase 4's pretrained
+   model. One fused launch per local step (FoolsGold's accumulators ride
+   in it), finite weight_result.csv rows, FoolsGold leaves the global BN
+   running stats bitwise the resumed model's, RFA's oracle count lies in
+   [1, maxiter + 1]; each round's round_time and server aggregate time
+   (FedAvg's too, in phase 4);
+4c. every aggregation rule's server aggregate at the full CIFAR size, timed;
 5. a small input held against a reference: one poisoned MNIST smoke round
    on the card against the same round on the CPU (the plain path), from the
-   same weights.
+   same weights, under FedAvg and under FoolsGold;
+5b. one MNIST smoke round on the card with a corrupt fault lane and the
+   quarantine screen on: at least one client quarantined, the committed
+   global model finite.
 
 The last lines are a JSON object with the kernels' numbers, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}. Exits
@@ -114,7 +126,7 @@ def device_ms(fn, reps: int = 20, name: str = "") -> float | None:
 
 
 # ---------------------------------------------------------------- phase 3
-def check_fused_update(dev) -> dict:
+def check_fused_update(dev) -> list:
     import torch
     from dba_mod_tpu_torch.config import Params
     from dba_mod_tpu_torch.models import build_model
@@ -165,16 +177,30 @@ def check_fused_update(dev) -> dict:
     log(f"phase 3: fused_step_update bitwise equal to its plain version "
         f"(62 param + 40 BN leaves, C={C}, FoolsGold on/off, invalid lanes)")
 
-    # timing at the main path's case: every client valid, FoolsGold off.
-    # The kernel's time is taken over launches of one prepared leaf table,
-    # so the wrapper's host work (checks, table) is not in it; that work is
-    # timed on its own, and the whole wrapper in steady state beside it.
-    st = state(False)
+    # timing at the main path's shapes, every client valid: FoolsGold off
+    # (FedAvg, RFA, ...) and on (the sgd_acc leaves)
+    return [time_fused_update(state(fg_on), lr, mu, wd, max_err, fg_on, C)
+            for fg_on in (False, True)]
+
+
+def time_fused_update(st, lr, mu, wd, max_err, fg_on, C) -> dict:
+    """The kernel's time over launches of one prepared leaf table (so the
+    wrapper's host work is not in it), that host work on its own, the whole
+    wrapper in steady state, the plain version, and a PyTorch library
+    yardstick: SGD(fused=True).step() over the same param leaves with one
+    lr (no validity or BN select), followed with FoolsGold on by
+    torch._foreach_add_ of the grads into the accumulators."""
+    import torch
+    from dba_mod_tpu_torch.ops import fused_update as fu
+    dev = lr.device
     ones = torch.ones((C,), device=dev)
-    args = (lr, ones, st["params"], st["grads"], st["mom"], {}, st["bn_new"],
-            st["bn_old"])
+    args = (lr, ones, st["params"], st["grads"], st["mom"], st["fg"],
+            st["bn_new"], st["bn_old"])
     kw = {"momentum": mu, "weight_decay": wd}
     launch = fu.prepare_launch(*args, **kw)
+    before = fu.fused_step_update.launches
+    fu.fused_step_update(*args, **kw)
+    per_call = fu.fused_step_update.launches - before
     ms = cuda_ms(launch)
     kernel_profiler_ms = device_ms(launch, name="fused_step_update_kernel")
     wrapper_ms = cuda_ms(lambda: fu.fused_step_update(*args, **kw))
@@ -185,25 +211,34 @@ def check_fused_update(dev) -> dict:
 
     plain_ms = cuda_ms(plain)
     plain_device_ms = device_ms(plain)
-    # yardstick: torch's fused multi-tensor SGD over the same param leaves
-    # with one lr (no validity select, no BN select); never used by the port
+    # never used by the port
     leaves = [t.clone().requires_grad_(True) for t in st["params"].values()]
     for t, g in zip(leaves, st["grads"].values()):
         t.grad = g
     opt = torch.optim.SGD(leaves, lr=0.1, momentum=mu, weight_decay=wd,
                           fused=True)
-    library_ms = cuda_ms(opt.step)
-    library_device_ms = device_ms(opt.step)
+    accs = [t.clone() for t in st["fg"].values()]
+    grads = list(st["grads"].values())
+
+    def library():
+        opt.step()
+        if fg_on:
+            torch._foreach_add_(accs, grads)
+
+    library_ms = cuda_ms(library)
+    library_device_ms = device_ms(library)
     n_p = sum(t.numel() for t in st["params"].values())
     n_b = sum(t.numel() for t in st["bn_old"].values())
     # each input read once, each output written once, as this run's data
-    # needs: sgd reads w, g, m and writes w, m (20 B); with every client
-    # valid, sel reads bn_new and writes bn_old (8 B)
-    nbytes = 20 * n_p + 8 * n_b
-    flops = 6 * n_p
+    # needs: sgd reads w, g, m and writes w, m (20 B), sgd_acc also reads
+    # and writes fg (28 B); with every client valid, sel reads bn_new and
+    # writes bn_old (8 B)
+    nbytes = (28 if fg_on else 20) * n_p + 8 * n_b
+    flops = (7 if fg_on else 6) * n_p
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = flops / FP32_FLOPS * 1e3
-    return {"name": "fused_step_update", "route": "cuda",
+    return {"name": ("fused_step_update[foolsgold]" if fg_on
+                     else "fused_step_update"), "route": "cuda",
             "source": "dba_mod_tpu_torch/csrc/fused_update.cu",
             "replaces": "dba_mod_tpu/ops/fused_update.py:69",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
@@ -212,6 +247,7 @@ def check_fused_update(dev) -> dict:
             "bound_by": ("bytes" if bound_bytes_ms >= bound_ops_ms
                          else "operations"),
             "library_ms": library_ms,
+            "launches_per_step": per_call,
             "kernel_profiler_ms": kernel_profiler_ms,
             "wrapper_ms": wrapper_ms, "wrapper_host_ms": wrapper_host_ms,
             "plain_device_ms": plain_device_ms,
@@ -233,6 +269,26 @@ def expected_launches(train_csv: Path, batch: int) -> int:
             key = (int(row["epoch"]), int(row["internal_epoch"]))
             steps[key] = max(steps.get(key, 0), -(-n // batch))
     return sum(steps.values())
+
+
+def _watch_aggregate(record: list):
+    """Wrap RoundEngine.aggregate_fn to record each call's device-synced
+    seconds and RFA's oracle count; returns the undo function."""
+    import torch
+    from dba_mod_tpu_torch.fl import rounds
+    real = rounds.RoundEngine.aggregate_fn
+
+    def timed(self, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real(self, *args, **kw)
+        torch.cuda.synchronize()
+        record.append({"seconds": time.perf_counter() - t,
+                       "oracle_calls": int(res.num_oracle_calls)})
+        return res
+
+    rounds.RoundEngine.aggregate_fn = timed
+    return lambda: setattr(rounds.RoundEngine, "aggregate_fn", real)
 
 
 def run_main_path(tmp: Path) -> dict:
@@ -257,12 +313,17 @@ def run_main_path(tmp: Path) -> dict:
              "--out", "cifar_pretrain/smoke"]) != 0:
         raise AssertionError("pretrain failed")
     pretrain_s = time.perf_counter() - t0
+    aggs: list = []
+    undo = _watch_aggregate(aggs)
     fu.fused_step_update.launches = 0
     t0 = time.perf_counter()
-    if cli_main(["train", "--params", str(cfg_path), "--resume",
-             "cifar_pretrain/smoke", "--epochs", "3"]) != 0:
-        raise AssertionError("train failed")
-    torch.cuda.synchronize()
+    try:
+        if cli_main(["train", "--params", str(cfg_path), "--resume",
+                     "cifar_pretrain/smoke", "--epochs", "3"]) != 0:
+            raise AssertionError("train failed")
+        torch.cuda.synchronize()
+    finally:
+        undo()
     train_s = time.perf_counter() - t0
     launches = fu.fused_step_update.launches
 
@@ -315,13 +376,15 @@ def run_main_path(tmp: Path) -> dict:
     with open(folder / "round_result.csv", newline="") as f:
         round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
     log(f"phase 4: pretrain {pretrain_s:.1f}s; resumed train of 2 poisoned "
-        f"rounds {train_s:.1f}s; round_time per round {round_s}; "
+        f"rounds {train_s:.1f}s; round_time per round {round_s}; FedAvg "
+        f"aggregate {[round(a['seconds'], 4) for a in aggs]}s; "
         f"{launches} fused launches = {want} local steps; final "
         f"acc={rows[-1]['global_acc']:.2f} "
         f"backdoor={rows[-1]['backdoor_acc']:.2f}; global eval loss "
         f"{[r['global_loss'] for r in rows]}, min BN running var "
         f"{min_var}")
     return {"launches": launches, "round_s": round_s,
+            "aggregate_s": [a["seconds"] for a in aggs],
             "pretrain_s": pretrain_s, "train_s": train_s,
             "global_acc": [r["global_acc"] for r in rows],
             "global_loss": [r["global_loss"] if math.isfinite(
@@ -331,35 +394,211 @@ def run_main_path(tmp: Path) -> dict:
             "backdoor_acc": [r["backdoor_acc"] for r in rows]}
 
 
+# --------------------------------------------------------------- phase 4b
+def run_robust_rounds(tmp: Path) -> dict:
+    """Two poisoned full-width CIFAR rounds under FoolsGold and two under
+    RFA through the CLI, resumed from phase 4's pretrained model, with
+    phase 4's config changed only in aggregation_methods and the run
+    folder. The first round's server aggregate carries the process's
+    first use of the rule's kernels; the second shows the steady state."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.models import build_model
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    base = yaml.safe_load((tmp / "cifar_smoke.yaml").read_text())
+    like = build_model(Params.from_dict(base)).init_vars(
+        0, torch.device("cpu"))
+    resumed, _, _ = ckpt.load_checkpoint(ckpt.resolve_verified(
+        tmp / "ckpt" / "cifar_pretrain" / "smoke"), like)
+    out = {}
+    for rule in ("foolsgold", "geom_median"):
+        raw = dict(base, aggregation_methods=rule,
+                   run_dir=str(tmp / f"runs_{rule}"))
+        cfg_path = tmp / f"cifar_{rule}.yaml"
+        cfg_path.write_text(yaml.safe_dump(raw))
+        aggs: list = []
+        undo = _watch_aggregate(aggs)
+        fu.fused_step_update.launches = 0
+        try:
+            if cli_main(["train", "--params", str(cfg_path), "--resume",
+                         "cifar_pretrain/smoke", "--epochs", "3"]) != 0:
+                raise AssertionError(f"{rule} rounds failed")
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        launches = fu.fused_step_update.launches
+        (folder,) = list((tmp / f"runs_{rule}").iterdir())
+        steps = expected_launches(folder / "train_result.csv",
+                                  int(raw["batch_size"]))
+        if launches != steps or launches == 0:
+            raise AssertionError(f"{rule}: fused kernel launched {launches} "
+                                 f"times, the round ran {steps} local steps "
+                                 f"(one launch per step)")
+        rows = [r for r in csv.reader(open(folder / "weight_result.csv"))]
+        weights = [[float(x) for x in r] for i, r in enumerate(rows)
+                   if i % 3]   # names, wv, alpha per round
+        if len(rows) != 6 or not all(math.isfinite(x) for r in weights
+                                     for x in r):
+            raise AssertionError(f"{rule}: weight_result rows {rows}")
+        recs = [json.loads(l) for l in (folder / "metrics.jsonl")
+                .read_text().splitlines() if l.strip()]
+        if [r["epoch"] for r in recs] != [2, 3] or not all(
+                r["adversaries"] for r in recs):
+            raise AssertionError(f"{rule}: rounds {recs}")
+        row = recs[-1]
+        gv, _, _ = ckpt.load_checkpoint(folder / "model_last.pt.tar", like)
+        if not all(bool(torch.isfinite(v).all()) for v in
+                   list(gv.params.values()) + list(gv.batch_stats.values())):
+            raise AssertionError(f"{rule}: non-finite global model")
+        calls = [a["oracle_calls"] for a in aggs]
+        if rule == "foolsgold":
+            # FoolsGold steps the parameters only (helper.py:286-290)
+            for k, v in resumed.batch_stats.items():
+                if not torch.equal(gv.batch_stats[k], v):
+                    raise AssertionError(f"foolsgold moved BN stat {k}")
+        elif not all(1 <= c <= int(raw["geom_median_maxiter"]) + 1
+                     for c in calls):
+            raise AssertionError(f"RFA oracle calls {calls}")
+        with open(folder / "round_result.csv", newline="") as f:
+            round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
+        agg_s = [a["seconds"] for a in aggs]
+        out[rule] = {"launches": launches, "round_s": round_s,
+                     "aggregate_s": agg_s, "oracle_calls": calls,
+                     "wv": weights[-2], "global_acc": row["global_acc"],
+                     "backdoor_acc": row["backdoor_acc"]}
+        log(f"phase 4b: {rule}, 2 poisoned CIFAR rounds: round_time "
+            f"{round_s}, aggregate {[round(s, 4) for s in agg_s]}s, "
+            f"{launches} fused launches = {steps} local steps x 1, oracle "
+            f"calls {calls}, last wv {[round(w, 4) for w in weights[-2]]}, "
+            f"acc {row['global_acc']:.2f} backdoor "
+            f"{row['backdoor_acc']:.2f}"
+            + ("; global BN stats bitwise the resumed model's"
+               if rule == "foolsgold" else ""))
+    return out
+
+
+# --------------------------------------------------------------- phase 4c
+def time_aggregation_rules(dev) -> dict:
+    """Each rule's server aggregate on the full CIFAR ResNet-18 state at
+    C = 10 (random deltas, every client a survivor), timed on the card:
+    CUDA events around back-to-back calls of fl/rounds.aggregate, and the
+    peak device memory of one call."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.rounds import aggregate
+    from dba_mod_tpu_torch.fl.state import RoundHyper
+    from dba_mod_tpu_torch.models import ModelVars, build_model
+    from dba_mod_tpu_torch.ops.aggregation import foolsgold_init
+
+    raw = yaml.safe_load((REPO / "configs" / "cifar_params.yaml")
+                         .read_text())
+    mv = build_model(Params.from_dict(raw)).init_vars(0, dev)
+    C = 10
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def stacked(tree):
+        return {k: 1e-3 * torch.randn((C,) + tuple(v.shape), generator=gen,
+                                      device=dev) for k, v in tree.items()}
+
+    deltas = ModelVars(stacked(mv.params), stacked(mv.batch_stats))
+    fg_grads = stacked(mv.params)
+    feat = fg_grads["fc.weight"].reshape(C, -1)
+    ns = torch.full((C,), 500.0, device=dev)
+    ids = torch.arange(C, device=dev) * 7
+    out = {}
+    for rule in ("mean", "foolsgold", "geom_median", "krum",
+                 "trimmed_mean", "median"):
+        hyper = RoundHyper.from_params(Params.from_dict(
+            dict(raw, aggregation_methods=rule)))
+        fg = foolsgold_init(100, feat.shape[1], dev)
+
+        def call():
+            return aggregate(hyper, mv, deltas, fg_state=fg,
+                             fg_grads=fg_grads, fg_feature=feat,
+                             participant_ids=ids, num_samples=ns)
+
+        res = call()
+        if not all(bool(torch.isfinite(v).all()) for v in
+                   list(res.new_vars.params.values())
+                   + list(res.new_vars.batch_stats.values())):
+            raise AssertionError(f"{rule}: non-finite aggregate")
+        torch.cuda.reset_peak_memory_stats()
+        out[rule] = {"ms": cuda_ms(call, reps=10, warmup=2),
+                     "peak_mb": torch.cuda.max_memory_allocated() / 1e6}
+    log("phase 4c: server aggregate at full CIFAR size, C=10 (ms, peak MB): "
+        + ", ".join(f"{k} {v['ms']:.2f} ({v['peak_mb']:.0f})"
+                    for k, v in out.items()))
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 def check_small_reference(tmp: Path) -> dict:
     """One poisoned MNIST smoke round (smoke_params.yaml at its own small
-    size) on the card against the same round on the CPU, from the same
-    initial weights and plans. The CPU run is the plain path (plain fused
-    update, CPU convolutions). Bound 1e-4 on the global state: f32
-    convolutions sum in another order in cuDNN than on the CPU, and the
-    ~1e-7 relative differences compound over the round's SGD steps."""
+    size) on the card against the same round on the CPU (the plain path:
+    plain fused update, CPU convolutions), from the same initial weights
+    and plans, under FedAvg and under FoolsGold. Bound 1e-4 on the global
+    state: f32 convolutions sum in another order in cuDNN than on the CPU,
+    and the ~1e-7 relative differences compound over the round's SGD
+    steps."""
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+
+    result = {}
+    for rule in ("mean", "foolsgold"):
+        outs = {}
+        for name in ("cuda", "cpu"):
+            p = Params.from_yaml(REPO / "configs" / "smoke_params.yaml")
+            p.raw.update(run_dir=str(tmp / f"small_{name}"),
+                         aggregation_methods=rule)
+            exp = Experiment(p, save_results=False, device=name)
+            r = exp.run_round(3)       # adversary 0 poisons from round 3
+            outs[name] = (r, {k: v.cpu() for k, v in
+                              exp.global_vars.params.items()})
+        diff = max(float((outs["cuda"][1][k] - outs["cpu"][1][k])
+                         .abs().max()) for k in outs["cpu"][1])
+        acc_gap = abs(outs["cuda"][0]["global_acc"]
+                      - outs["cpu"][0]["global_acc"])
+        if not diff <= 1e-4 or not acc_gap <= 1.0:
+            raise AssertionError(f"card vs CPU MNIST {rule} round: global "
+                                 f"max abs diff {diff}, accuracy gap "
+                                 f"{acc_gap}")
+        log(f"phase 5: MNIST {rule} round card vs CPU: global max abs diff "
+            f"{diff:.3g}, accuracy gap {acc_gap:.3g}")
+        result[rule] = {"global_max_abs_diff": diff, "acc_gap": acc_gap}
+    return result
+
+
+def check_fault_round(tmp: Path) -> dict:
+    """One MNIST smoke round on the card with the fault layer on: a corrupt
+    lane that hits clients 1 and 2 of epoch 3 (fault_seed 0, probability
+    0.5, the port's own plan) and the screen on. The round must quarantine
+    them and commit a finite global model."""
     import torch
     from dba_mod_tpu_torch.config import Params
     from dba_mod_tpu_torch.fl.experiment import Experiment
 
-    outs = {}
-    for name in ("cuda", "cpu"):
-        p = Params.from_yaml(REPO / "configs" / "smoke_params.yaml")
-        p.raw.update(run_dir=str(tmp / f"small_{name}"))
-        exp = Experiment(p, save_results=False, device=name)
-        r = exp.run_round(3)       # adversary 0 poisons from round 3
-        outs[name] = (r, {k: v.cpu() for k, v in
-                          exp.global_vars.params.items()})
-    diff = max(float((outs["cuda"][1][k] - outs["cpu"][1][k]).abs().max())
-               for k in outs["cpu"][1])
-    acc_gap = abs(outs["cuda"][0]["global_acc"] - outs["cpu"][0]["global_acc"])
-    if not diff <= 1e-4 or not acc_gap <= 1.0:
-        raise AssertionError(f"card vs CPU MNIST round: global max abs diff "
-                             f"{diff}, accuracy gap {acc_gap}")
-    log(f"phase 5: MNIST round card vs CPU: global max abs diff {diff:.3g}, "
-        f"accuracy gap {acc_gap:.3g}")
-    return {"global_max_abs_diff": diff, "acc_gap": acc_gap}
+    p = Params.from_yaml(REPO / "configs" / "smoke_params.yaml")
+    p.raw.update(run_dir=str(tmp / "fault"), fault_injection=True,
+                 fault_corrupt_prob=0.5, fault_seed=0, screen_updates=True)
+    exp = Experiment(p, save_results=True, device="cuda")
+    r = exp.run_round(3)
+    finite = all(bool(torch.isfinite(v).all()) for v in
+                 list(exp.global_vars.params.values())
+                 + list(exp.global_vars.batch_stats.values()))
+    if r["n_quarantined"] < 1 or r["degraded"] or not finite or \
+            not math.isfinite(r["global_acc"]):
+        raise AssertionError(f"fault round on the card: {r}, finite model "
+                             f"{finite}")
+    log(f"phase 5b: MNIST fault round on the card: quarantined "
+        f"{r['n_quarantined']}, dropped {r['n_dropped']}, retries "
+        f"{r['n_retries']}, acc {r['global_acc']:.2f}, finite global model")
+    return {k: r[k] for k in ("n_quarantined", "n_dropped", "n_retries",
+                              "degraded", "global_acc")}
 
 
 def main() -> int:
@@ -387,26 +626,32 @@ def main() -> int:
         f"(nvcc seconds {cuda_build.build_seconds}); load total "
         f"{time.perf_counter() - t0:.2f}s")
 
-    kernel = check_fused_update(dev)
-    log(f"phase 3: fused_step_update kernel {kernel['ms']:.4f} ms "
-        f"(profiler {kernel['kernel_profiler_ms']}), bound "
-        f"{kernel['bound_ms']:.4f} ms ({kernel['bytes'] / 1e6:.1f} MB); "
-        f"wrapper {kernel['wrapper_ms']:.4f} ms per call, of which host "
-        f"{kernel['wrapper_host_ms']:.4f} ms; plain {kernel['plain_ms']:.4f} "
-        f"ms (device {kernel['plain_device_ms']}); torch SGD(fused=True) "
-        f"{kernel['library_ms']:.4f} ms (device "
-        f"{kernel['library_device_ms']})")
+    kernels = check_fused_update(dev)
+    for k in kernels:
+        log(f"phase 3: {k['name']} kernel {k['ms']:.4f} ms (profiler "
+            f"{k['kernel_profiler_ms']}), bound {k['bound_ms']:.4f} ms "
+            f"({k['bytes'] / 1e6:.1f} MB), {k['launches_per_step']} launch "
+            f"per step; wrapper {k['wrapper_ms']:.4f} ms per call, of which "
+            f"host {k['wrapper_host_ms']:.4f} ms; plain {k['plain_ms']:.4f} "
+            f"ms (device {k['plain_device_ms']}); library "
+            f"{k['library_ms']:.4f} ms (device {k['library_device_ms']})")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         tmp = Path(td)
         path = run_main_path(tmp)
-        kernel["launches"] = path["launches"]
+        kernels[0]["launches"] = path["launches"]
+        robust = run_robust_rounds(tmp)
+        kernels[1]["launches"] = robust["foolsgold"]["launches"]
+        rules = time_aggregation_rules(dev)
         small = check_small_reference(tmp)
+        fault = check_fault_round(tmp)
 
-    del kernel["bytes"]
-    print(json.dumps({"main_path": path, "small_reference": small}),
-          flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    for k in kernels:
+        del k["bytes"]
+    print(json.dumps({"main_path": path, "robust_rounds": robust,
+                      "aggregate_ms": rules, "small_reference": small,
+                      "fault_round": fault}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

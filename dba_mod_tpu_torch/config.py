@@ -350,9 +350,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 def check_ported(raw: Dict[str, Any]) -> None:
     """Raise NotImplementedError for a knob whose code path the port does
     not carry yet. Every default passes."""
-    if raw["aggregation_methods"] != AGGR_MEAN:
-        raise _unported(f"aggregation_methods: "
-                        f"{raw['aggregation_methods']}", "A12")
     if raw["type"] in (TYPE_LOAN, TYPE_TINYIMAGENET):
         raise _unported(f"type: {raw['type']}", "A11")
     if str(raw["compute_dtype"]) not in ("float32", "f32"):
@@ -362,8 +359,6 @@ def check_ported(raw: Dict[str, Any]) -> None:
         raise _unported("mode: async", "A16")
     if int(raw["num_devices"]) not in (0, 1):
         raise _unported(f"num_devices: {raw['num_devices']}", "A18")
-    if bool(raw["fault_injection"]) or raw["screen_updates"] is True:
-        raise _unported("fault_injection / screen_updates", "A13")
     if bool(raw["forensics"]) or bool(raw["model_health_check"]):
         raise _unported("forensics / model_health_check", "A14")
     if (bool(raw["telemetry"]) or bool(raw["tensorboard"])

@@ -10,8 +10,10 @@ tensors; ``to_jax_numpy`` is its inverse. The mapping:
   ``weight/bias`` and ``running_mean/running_var``.
 
 The port's MnistNet flattens its activations in NHWC order like flax, so
-its fc1 needs no row permutation. Used by the parity tests and by anyone
-moving a checkpoint between the two packages.
+its fc1 needs no row permutation. ``fg_memory_from_jax`` /
+``fg_memory_to_jax`` carry the FoolsGold memory, whose rows flatten the
+similarity layer in each package's own layout. Used by the parity tests and
+by anyone moving a checkpoint between the two packages.
 """
 from __future__ import annotations
 
@@ -125,3 +127,23 @@ def to_jax_numpy(model_name: str, model_vars: ModelVars
             _put(params, path, conv_out[kind](
                 model_vars.params[key].detach().cpu().numpy()))
     return params, stats
+
+
+def fg_memory_from_jax(memory, weight_shape) -> torch.Tensor:
+    """The JAX package's FoolsGold memory [N, L] → the port's. A JAX row is
+    the similarity layer's flax kernel [in, out] flattened; a port row is
+    the torch weight [out, in] (`weight_shape`) flattened, so each row is
+    transposed."""
+    out_f, in_f = weight_shape
+    m = np.asarray(memory, np.float32)
+    rows = m.reshape(m.shape[0], in_f, out_f).transpose(0, 2, 1)
+    return torch.from_numpy(np.ascontiguousarray(rows.reshape(m.shape[0],
+                                                              -1)))
+
+
+def fg_memory_to_jax(memory: torch.Tensor, weight_shape) -> np.ndarray:
+    """Inverse of :func:`fg_memory_from_jax`."""
+    out_f, in_f = weight_shape
+    m = memory.detach().cpu().numpy()
+    rows = m.reshape(m.shape[0], out_f, in_f).transpose(0, 2, 1)
+    return np.ascontiguousarray(rows.reshape(m.shape[0], -1))

@@ -23,8 +23,10 @@ step whose batch mask is empty for EVERY client is skipped on the host: it
 is an exact no-op in the JAX program too, and the plan (numpy) says so
 without a device sync.
 
-FoolsGold's gradient accumulation (the fused kernel's `acc` leaves) comes
-with the FoolsGold aggregation (ROADMAP A12): this slice passes no `fg`.
+Under FoolsGold the step also accumulates each client's raw gradient into
+per-segment `fg` accumulators (zeros at the segment start,
+dba_mod_tpu/fl/client.py:93), inside the same fused launch (the kernel's
+`sgd_acc` leaves, valid clients only). Without FoolsGold it passes no `fg`.
 """
 from __future__ import annotations
 
@@ -51,6 +53,8 @@ class ClientMetrics(NamedTuple):
 class SegmentResult(NamedTuple):
     end_vars: ModelVars         # post-scaling client states [C, ...]
     benign_mom: Dict            # benign-optimizer momentum after the segment
+    fg_grads: Dict              # FoolsGold: Σ of the segment's raw gradients
+                                # per client ({} when FoolsGold is off)
     metrics: ClientMetrics
     batch_loss: torch.Tensor    # [C, E*S] per-batch loss ([C, 0] when off)
     batch_dist: torch.Tensor    # [C, E*S] post-step ‖w-w_anchor‖
@@ -61,7 +65,7 @@ def _per_client(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def make_client_step(model_def: ModelDef, data: DeviceData,
-                     hyper: RoundHyper):
+                     hyper: RoundHyper, fg_enabled: bool = False):
     """Returns client_step(start_vars, benign_mom, task, idx [C,E,S,B],
     mask [C,E,S,B], active [E,S]) -> SegmentResult. `task` holds device
     tensors; idx/mask are device tensors and `active` is the host-side
@@ -94,6 +98,8 @@ def make_client_step(model_def: ModelDef, data: DeviceData,
         mom = {k: torch.where(_per_client(is_poison_seg, v),
                               torch.zeros_like(v), v)
                for k, v in benign_mom.items()}
+        fg = ({k: torch.zeros_like(v) for k, v in params.items()}
+              if fg_enabled else {})
         zeros = torch.zeros((C, E), dtype=torch.float32, device=dev)
         loss_sum, correct, count, pcount = (zeros.clone() for _ in range(4))
         width = E * S if hyper.track_batches else 0
@@ -114,7 +120,7 @@ def make_client_step(model_def: ModelDef, data: DeviceData,
                     params, bn, x, y, bmask, params0, alpha)
                 bmaskf = bmask.to(torch.float32)
                 vf = (torch.sum(bmaskf, dim=-1) > 0).to(torch.float32)
-                fused_step_update(lr, vf, params, grads, mom, {}, new_bn, bn,
+                fused_step_update(lr, vf, params, grads, mom, fg, new_bn, bn,
                                   momentum=hyper.momentum,
                                   weight_decay=hyper.weight_decay)
                 preds = torch.argmax(logits, dim=-1)
@@ -140,7 +146,7 @@ def make_client_step(model_def: ModelDef, data: DeviceData,
         end_vars = ModelVars(
             {k: rescale(params0[k], params[k]) for k in params},
             {k: rescale(bn0[k], bn[k]) for k in bn})
-        return SegmentResult(end_vars, benign_out,
+        return SegmentResult(end_vars, benign_out, fg,
                              ClientMetrics(loss_sum, correct, count, pcount),
                              batch_loss, batch_dist)
 

@@ -1,14 +1,18 @@
-"""The end-to-end FL experiment loop, synchronous FedAvg path (port of
+"""The end-to-end FL experiment loop, synchronous path (port of
 dba_mod_tpu/fl/experiment.py).
 
 Data loading + partitioning once at startup, then per round: host-side
 agent selection and plan building, the stacked-client round on the device
-(train all clients → FedAvg → local/global evaluation batteries), one
-transfer of the round's results to the host, and recording into the same
-CSV/JSONL files and columns as the JAX package. The async engine, the robust
-dispatch (faults, screening, retries), forensics, the health sentinel,
-telemetry and round overlap are ROADMAP A13-A17; config.check_ported
-rejects their knobs.
+(train all clients → [faults → screen] → aggregate → local/global
+evaluation batteries), one transfer of the round's results to the host,
+and recording into the same CSV/JSONL files and columns as the JAX package.
+The robust dispatch (fault_injection / screen_updates) retries a round whose
+aggregate is non-finite from the captured pre-round state with an escalated
+norm screen, and degrades it when retries run out. The FoolsGold memory and
+the stale lane's replay source live in RAM only: the full-state sidecar
+that would carry them across a resume is ROADMAP A15. The async engine,
+forensics, the health sentinel, telemetry and round overlap are ROADMAP
+A14-A17; config.check_ported rejects their knobs.
 """
 from __future__ import annotations
 
@@ -29,11 +33,13 @@ from dba_mod_tpu_torch.data.datasets import load_image_dataset
 from dba_mod_tpu_torch.data.partition import (equal_split_indices,
                                               poison_test_indices,
                                               sample_dirichlet_indices)
+from dba_mod_tpu_torch.fl import faults as flt
 from dba_mod_tpu_torch.fl.device_data import make_image_device_data
 from dba_mod_tpu_torch.fl.rounds import EvalPlans, RoundEngine
 from dba_mod_tpu_torch.fl.selection import select_agents
 from dba_mod_tpu_torch.fl.state import build_client_tasks
-from dba_mod_tpu_torch.models import build_model
+from dba_mod_tpu_torch.models import ModelVars, build_model
+from dba_mod_tpu_torch.ops.aggregation import foolsgold_init
 from dba_mod_tpu_torch.utils.device import pin_float32_math, resolve_device
 from dba_mod_tpu_torch.utils.html import dict_html
 from dba_mod_tpu_torch.utils.recorder import Recorder
@@ -68,6 +74,11 @@ class RoundInFlight:
     mask_list: List[Any]
     payload: Any
     dispatch_time: float = 0.0
+    # the robust dispatch's outcome: retries consumed re-running the round
+    # after a non-finite aggregate, and whether retries ran out and the
+    # pre-round state was carried forward
+    n_retries: int = 0
+    forced_degraded: bool = False
 
 
 class Experiment:
@@ -128,6 +139,16 @@ class Experiment:
         self.engine = RoundEngine(params, self.model_def, self.device_data,
                                   self.eval_plans,
                                   num_segments=self.interval)
+        self.max_round_retries = int(params.get("max_round_retries", 2))
+        self.retry_backoff_s = float(params.get("retry_backoff_s", 0.0))
+        # last round's received deltas: the stale lane's replay source (zero
+        # before the first round; not carried across a resume, ROADMAP A15)
+        self._prev_deltas: Optional[ModelVars] = None
+        # FoolsGold's id-keyed memory, carried round to round (RAM only)
+        grad_len = int(self.model_def.similarity_param(
+            self.global_vars.params).numel())
+        self.fg_state = foolsgold_init(self.num_participants, grad_len,
+                                       self.device)
         self.local_eval = bool(params.get("local_eval", True))
         self.last_is_updated = True
         self.last_global_loss = float("inf")  # feeds the best-val checkpoint
@@ -245,6 +266,7 @@ class Experiment:
         else:
             min_steps = self.steps_per_epoch
         tasks_list, idx_list, mask_list = [], [], []
+        num_samples = None
         for ep in seg_epochs:
             tasks_s = build_client_tasks(params, agent_names, ep, slots,
                                          self.epochs_max)
@@ -253,17 +275,112 @@ class Experiment:
                 [int(e) for e in tasks_s.num_epochs],
                 int(params["batch_size"]), self.plan_rng,
                 min_steps=min_steps, min_epochs=self.epochs_max)
+            if num_samples is None:
+                num_samples = plan.num_samples.astype(np.float32)
             tasks_list.append(tasks_s)
             idx_list.append(plan.idx)
             mask_list.append(plan.mask)
-        new_vars, payload = self.engine.round_fn(
-            self.global_vars, tasks_list, np.stack(idx_list),
-            np.stack(mask_list), self.noise_gen)
-        self.global_vars = new_vars
+        idx_seq, mask_seq = np.stack(idx_list), np.stack(mask_list)
+        if self.engine.robust:
+            return self._dispatch_robust(epoch, t0, seg_epochs, agent_names,
+                                         adv_names, tasks_list, idx_seq,
+                                         mask_seq, mask_list, num_samples)
+        new_vars, new_fg, payload, _ = self.engine.round_fn(
+            self.global_vars, tasks_list, idx_seq, mask_seq, self.noise_gen,
+            num_samples=num_samples, fg_state=self.fg_state)
+        self.global_vars, self.fg_state = new_vars, new_fg
         return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
                              agent_names=agent_names, adv_names=adv_names,
                              tasks_list=tasks_list, mask_list=mask_list,
                              payload=payload)
+
+    def _zero_deltas(self, n_clients: int) -> ModelVars:
+        """A [C]-stacked all-zero delta tree: the stale lane's replay source
+        before any round was received."""
+        def z(tree):
+            return {k: torch.zeros((n_clients,) + tuple(v.shape),
+                                   dtype=v.dtype, device=v.device)
+                    for k, v in tree.items()}
+        return ModelVars(z(self.global_vars.params),
+                         z(self.global_vars.batch_stats))
+
+    def _robust_round_args(self, epoch: int, num_samples: np.ndarray,
+                           norm_mult: Optional[float] = None) -> Dict:
+        """The robust round's extra inputs: the fault plan (a pure function
+        of (fault_seed, epoch), so a retry sees the same faults), the stale
+        lane's replay source and the screen's norm multiplier."""
+        fcfg = self.engine.fault_cfg
+        plan = prev = None
+        if fcfg.enabled:
+            plan = flt.make_fault_plan(
+                fcfg, flt.fault_generator(fcfg.seed, epoch),
+                torch.from_numpy(num_samples > 0))
+        if fcfg.stale_enabled:
+            prev = (self._prev_deltas if self._prev_deltas is not None
+                    else self._zero_deltas(len(num_samples)))
+        nm = self.engine.base_norm_mult if norm_mult is None else norm_mult
+        return dict(fault_plan=plan, prev_deltas=prev, norm_mult=nm)
+
+    @staticmethod
+    def _escalate_norm_mult(cur: float) -> float:
+        """Retry-k screening escalation: switch the norm screen on at 10×
+        the survivor median if it was off, then halve it each further retry,
+        floored at 1× the median."""
+        return 10.0 if cur <= 0 else max(cur / 2.0, 1.0)
+
+    def _dispatch_robust(self, epoch, t0, seg_epochs, agent_names, adv_names,
+                         tasks_list, idx_seq, mask_seq, mask_list,
+                         num_samples) -> RoundInFlight:
+        """The robust round: run it, then, only when screening is on, check
+        that the aggregated model is finite (one host sync) and re-run the
+        round from the captured pre-round state with an escalated norm
+        screen, up to max_round_retries. When retries run out the round is
+        degraded: the pre-round state is carried forward and the global
+        battery re-run on it."""
+        vars_before, fg_before = self.global_vars, self.fg_state
+        # every attempt draws the same DP noise, as the JAX package's fixed
+        # per-round key does
+        gen_state = self.noise_gen.get_state()
+        norm_mult: Optional[float] = None
+        retries = 0
+        finite = True
+        while True:
+            self.noise_gen.set_state(gen_state)
+            new_vars, new_fg, payload, deltas_out = self.engine.round_fn(
+                vars_before, tasks_list, idx_seq, mask_seq, self.noise_gen,
+                num_samples=num_samples, fg_state=fg_before,
+                **self._robust_round_args(epoch, num_samples, norm_mult))
+            if not self.engine.screening:
+                break   # unscreened injection: faults flow through
+            finite = bool(payload[9].global_finite)   # the one host sync
+            if finite or retries >= self.max_round_retries:
+                break
+            retries += 1
+            cur = (self.engine.base_norm_mult if norm_mult is None
+                   else norm_mult)
+            norm_mult = self._escalate_norm_mult(cur)
+            if self.retry_backoff_s > 0:
+                time.sleep(min(self.retry_backoff_s * 2 ** (retries - 1),
+                               30.0))
+            logger.warning("epoch %d: aggregated model non-finite; retry "
+                           "%d/%d with norm screen at %.2f× median", epoch,
+                           retries, self.max_round_retries, norm_mult)
+        forced = self.engine.screening and not finite
+        if forced:
+            logger.warning("epoch %d: aggregated model non-finite after %d "
+                           "retries; degraded round (pre-round model carried "
+                           "forward)", epoch, retries)
+            new_vars, new_fg = vars_before, fg_before
+            payload = (payload[:1] + (self.engine.global_evals(new_vars),)
+                       + payload[2:])
+        self.global_vars, self.fg_state = new_vars, new_fg
+        if self.engine.fault_cfg.stale_enabled:
+            self._prev_deltas = deltas_out
+        return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
+                             agent_names=agent_names, adv_names=adv_names,
+                             tasks_list=tasks_list, mask_list=mask_list,
+                             payload=payload, n_retries=retries,
+                             forced_degraded=forced)
 
     def finalize_round(self, fl: RoundInFlight) -> Dict[str, Any]:
         t_fin = time.perf_counter()
@@ -279,8 +396,15 @@ class Experiment:
         self.last_global_loss = float(globals_.clean.loss)
         if self.is_poison_run:
             self.last_backdoor_acc = float(globals_.poison.acc)
-        robust = {"n_quarantined": 0, "n_dropped": 0, "n_retries": 0,
-                  "degraded": False}
+        # robust counters: from the round's screen plus the host retry path
+        robust = {"n_quarantined": 0, "n_dropped": 0,
+                  "n_retries": int(fl.n_retries),
+                  "degraded": bool(fl.forced_degraded)}
+        if rstats is not None:
+            robust["n_quarantined"] = int(rstats.n_quarantined)
+            robust["n_dropped"] = int(rstats.n_dropped)
+            robust["degraded"] = (bool(rstats.degraded)
+                                  or bool(fl.forced_degraded))
         self._record(fl.epoch, fl.seg_epochs, fl.agent_names, fl.adv_names,
                      fl.tasks_list, metrics, locals_, globals_, delta_norms,
                      wv, alpha, times, batches, fl.mask_list, seg_locals,

@@ -1,30 +1,37 @@
 """The round engine: train + aggregate over the stacked client axis, plus
-the local/global evaluation batteries (port of dba_mod_tpu/fl/rounds.py:301-,
-the FedAvg path; the robust, forensic, health and grouped branches are
-ROADMAP A12-A19).
+the local/global evaluation batteries (port of dba_mod_tpu/fl/rounds.py; the
+forensic, health and grouped branches are ROADMAP A14 and A19).
 
 A round is
 
   train_fn     — for each `aggr_epoch_interval` segment (global epoch) the
                  stacked client step trains all clients, chaining each
                  client's state across segments (image_train.py:50-54,
-                 :306); emits Δ = w_end - w_global, per-segment metrics and
-                 the parameter-delta norms;
-  aggregate_fn — FedAvg over the stacked deltas, BN stats included;
+                 :306); emits Δ = w_end - w_global, the FoolsGold gradient
+                 accumulators, per-segment metrics and the delta norms;
+  [faults → screen] — on the robust path (fault_injection or
+                 screen_updates): the round's fault plan perturbs what the
+                 server receives, and the quarantine pass turns the payloads
+                 into a survivor mask;
+  aggregate_fn — the configured rule over the stacked deltas (FedAvg, RFA,
+                 Krum, trimmed mean, median over the full state, BN stats
+                 included; FoolsGold over the accumulators, params only);
   evaluations  — the per-client local battery and the global battery.
 
-`round_fn` runs all three and returns the payload in the order the JAX
-package's ``Experiment.finalize_round`` unpacks it.
+`round_fn` runs them all and returns the payload in the order the JAX
+package's ``Experiment.finalize_round`` unpacks it, with RobustStats (or
+None) in slot 9.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from dba_mod_tpu_torch import config as cfg
+from dba_mod_tpu_torch.fl import faults as flt
 from dba_mod_tpu_torch.fl.client import ClientMetrics, make_client_step
 from dba_mod_tpu_torch.fl.device_data import DeviceData
 from dba_mod_tpu_torch.fl.evaluation import (EvalResult, make_eval_fn,
@@ -35,8 +42,34 @@ from dba_mod_tpu_torch.ops import aggregation as agg
 from dba_mod_tpu_torch.ops.losses import tree_global_norm
 
 
+def count_bn_layers(batch_stats: Dict[str, torch.Tensor]) -> int:
+    """Number of BatchNorm layers = number of `running_mean` entries. Each
+    BN layer of the reference's state_dict carries one `num_batches_tracked`
+    counter, and RFA's Weiszfeld distance sums over every state entry
+    (helper.py:376-381), so the counter term enters once per BN layer."""
+    return sum(1 for k in batch_stats if k.endswith("running_mean"))
+
+
+def nbt_client_deltas(mask_seq: np.ndarray, scale_seq: np.ndarray
+                      ) -> np.ndarray:
+    """Per-client `num_batches_tracked` deltas of one round, [C] float32:
+    torch BN counts one per real (non-padded) train batch, and the
+    model-replacement epilogue scales the counter with the state and
+    truncates it into int64 (image_train.py:166-171), once per segment:
+    Σ_seg trunc(steps_seg · γ_seg). mask_seq: [S, C, E, steps, B];
+    scale_seq: [S, C]."""
+    steps = np.sum(np.any(mask_seq, axis=-1), axis=(2, 3))     # [S, C]
+    return np.sum(np.trunc(steps.astype(np.float32)
+                           * np.asarray(scale_seq, np.float32)),
+                  axis=0).astype(np.float32)
+
+
 class TrainResult(NamedTuple):
     deltas: ModelVars             # stacked [C, ...]: w_end - w_global
+    fg_grads: Dict                # [C, ...] raw grads summed over the round
+                                  # ({} when FoolsGold is off)
+    fg_feature: Optional[torch.Tensor]  # [C, L] the similarity layer's part
+                                  # of fg_grads, flattened (None when off)
     metrics: ClientMetrics        # [I, C, E] per segment/client/epoch
     delta_norms: torch.Tensor     # [C] ‖Δ_params‖
     batch_loss: torch.Tensor      # [I, C, E*S] ([I, C, 0] when off)
@@ -47,10 +80,84 @@ class TrainResult(NamedTuple):
 
 class AggregateResult(NamedTuple):
     new_vars: ModelVars
+    new_fg_state: Optional[agg.FoolsGoldState]
     wv: torch.Tensor              # [C] aggregation weights (robust rules)
-    alpha: torch.Tensor           # [C]
-    num_oracle_calls: int
-    is_updated: bool
+    alpha: torch.Tensor           # [C] RFA distances / FoolsGold alphas /
+                                  # Krum scores
+    num_oracle_calls: Any         # RFA's Weiszfeld count (1 otherwise)
+    is_updated: Any               # False iff RFA's max_update_norm rejected
+
+
+class RobustStats(NamedTuple):
+    """Per-round fault-tolerance outcome (None in the payload when the
+    fault layer and the screen are off)."""
+    n_dropped: torch.Tensor       # injected dropouts (never reported)
+    n_quarantined: torch.Tensor   # reported but failed the screen
+    n_surviving: torch.Tensor     # survivors among counted clients
+    degraded: torch.Tensor        # bool: aggregation skipped (< min)
+    global_finite: torch.Tensor   # bool: post-aggregation model finite
+    survivor_mask: torch.Tensor   # [C] bool
+
+
+def _merged(mv: ModelVars) -> Dict[str, torch.Tensor]:
+    """The full state as one flat dict (param and BN keys are disjoint)."""
+    return {**mv.params, **mv.batch_stats}
+
+
+def _per_client_finite(tree: Any) -> torch.Tensor:
+    """[C] bool: every entry of each client's row is finite. `tree`: a
+    ModelVars or a dict of stacked tensors."""
+    leaves = (_merged(tree) if isinstance(tree, ModelVars) else tree).values()
+    flags = None
+    for l in leaves:
+        f = torch.all(torch.isfinite(l.to(torch.float32)).reshape(
+            l.shape[0], -1), dim=1)
+        flags = f if flags is None else flags & f
+    return flags
+
+
+def _nanmedian(x: torch.Tensor) -> torch.Tensor:
+    """numpy's nanmedian of a vector: NaNs dropped, an even count averages
+    the two central values (torch.nanmedian returns the lower one); NaN
+    when nothing is left."""
+    ok = ~torch.isnan(x)
+    n = torch.sum(ok)
+    s = torch.sort(torch.where(ok, x, torch.full_like(x, float("inf")))
+                   ).values
+    lo = torch.clamp(torch.div(n - 1, 2, rounding_mode="floor"), min=0)
+    hi = torch.div(n, 2, rounding_mode="floor").clamp(max=x.shape[0] - 1)
+    med = 0.5 * (s[lo] + s[hi])
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))
+
+
+def screen_client_updates(deltas: ModelVars, reported: torch.Tensor,
+                          counted: torch.Tensor, norm_mult: float,
+                          extra_trees=()):
+    """The server's quarantine pass (dba_mod_tpu/fl/rounds.py:154-189).
+
+    finite — every entry of the delta (and of `extra_trees`, e.g. the
+             FoolsGold accumulators) must be finite;
+    norm   — ‖Δ_params‖ must not exceed `norm_mult` × the median norm of
+             the reported, finite, counted clients; `norm_mult` <= 0 turns
+             the norm screen off.
+
+    Returns (survivor_mask [C] bool, norms [C]). A client that never
+    reported is excluded whatever the screens say."""
+    finite = _per_client_finite(deltas)
+    for t in extra_trees:
+        finite = finite & _per_client_finite(t)
+    norms = torch.func.vmap(tree_global_norm)(deltas.params)
+    valid = reported & finite & counted
+    med = _nanmedian(torch.where(valid, norms,
+                                 torch.full_like(norms, float("nan"))))
+    thresh = (norm_mult * med if norm_mult > 0
+              else torch.full_like(med, float("inf")))
+    return reported & finite & (norms <= thresh), norms
+
+
+def _split(flat: Dict[str, torch.Tensor], like: ModelVars) -> ModelVars:
+    return ModelVars({k: flat[k] for k in like.params},
+                     {k: flat[k] for k in like.batch_stats})
 
 
 class LocalEvals(NamedTuple):
@@ -96,6 +203,89 @@ def _map2(fn, a: ModelVars, b: ModelVars) -> ModelVars:
                       for k, v in a.batch_stats.items()})
 
 
+def aggregate(hyper: RoundHyper, global_vars: ModelVars, deltas: ModelVars,
+              gen: Optional[torch.Generator] = None,
+              noise: Optional[ModelVars] = None, *,
+              fg_state: Optional[agg.FoolsGoldState] = None,
+              fg_grads: Optional[Dict] = None,
+              fg_feature: Optional[torch.Tensor] = None,
+              participant_ids: Optional[torch.Tensor] = None,
+              num_samples: Optional[torch.Tensor] = None,
+              nbt_deltas: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None) -> AggregateResult:
+    """The configured rule over the stacked deltas (the branches of the JAX
+    package's aggregate_fn). DP noise (diff_privacy) comes from `noise`
+    when given, else from `gen`. `mask` ([C] float, optional): the survivor
+    mask of the quarantine pass, routed to the rules' masked forms; None is
+    the dense path. FoolsGold needs fg_state, fg_grads, fg_feature and
+    participant_ids; RFA and masked FedAvg need num_samples (RFA also
+    nbt_deltas for the BN counters)."""
+    leaf = next(iter(deltas.params.values()))
+    sigma = hyper.sigma if hyper.diff_privacy else 0.0
+    zeros = torch.zeros((leaf.shape[0],), dtype=torch.float32,
+                        device=leaf.device)
+    wv, alpha, calls, is_updated, new_fg = zeros, zeros, 1, True, fg_state
+    rule = hyper.aggregation
+    if rule == cfg.AGGR_MEAN:
+        def fedavg(g, d, nz):
+            if mask is None:
+                return agg.fedavg_update(g, d, hyper.eta, hyper.no_models,
+                                         sigma, nz, gen)
+            return agg.fedavg_update_masked(
+                g, d, hyper.eta, hyper.no_models, mask, num_samples > 0,
+                sigma, nz, gen)
+        new_vars = ModelVars(
+            fedavg(global_vars.params, deltas.params,
+                   noise.params if noise else None),
+            fedavg(global_vars.batch_stats, deltas.batch_stats,
+                   noise.batch_stats if noise else None))
+    elif rule == cfg.AGGR_FOOLSGOLD:
+        r = agg.foolsgold_update(
+            global_vars.params, fg_grads, fg_feature, participant_ids,
+            fg_state, hyper.eta, hyper.lr, hyper.momentum,
+            hyper.weight_decay, use_memory=hyper.fg_use_memory,
+            mask=mask)
+        # BN stats are not aggregated by FoolsGold (the reference steps
+        # an optimizer over named_parameters only, helper.py:286-290)
+        new_vars = ModelVars(r.new_params, global_vars.batch_stats)
+        new_fg, wv, alpha = r.new_fg_state, r.wv, r.alpha
+    else:
+        state, stacked = _merged(global_vars), _merged(deltas)
+        nz = _merged(noise) if noise else None
+        if rule == cfg.AGGR_GEO_MED:
+            r = agg.geometric_median_update(
+                state, stacked, num_samples, hyper.eta,
+                maxiter=hyper.geom_median_maxiter,
+                max_update_norm=hyper.max_update_norm, dp_sigma=sigma,
+                noise=nz, gen=gen, nbt_deltas=nbt_deltas,
+                n_bn=count_bn_layers(global_vars.batch_stats),
+                mask=mask)
+            calls, is_updated = r.num_oracle_calls, r.is_updated
+            wv, alpha = r.wv, r.distances
+        elif rule == cfg.AGGR_KRUM:
+            r = agg.krum_update(state, stacked, hyper.eta, hyper.krum_m,
+                                hyper.krum_f, mask=mask, dp_sigma=sigma,
+                                noise=nz, gen=gen)
+            # alpha records the Krum scores, clipped into a plottable
+            # range (excluded clients' sentinels are ~1e35)
+            wv, alpha = r.wv, torch.clamp(r.scores, max=1e30)
+        elif rule == cfg.AGGR_TRIMMED_MEAN:
+            r = agg.trimmed_mean_update(state, stacked, hyper.eta,
+                                        hyper.trim_beta, mask=mask,
+                                        dp_sigma=sigma, noise=nz, gen=gen)
+            wv = r.wv
+        elif rule == cfg.AGGR_MEDIAN:
+            r = agg.coordinate_median_update(state, stacked, hyper.eta,
+                                             mask=mask, dp_sigma=sigma,
+                                             noise=nz, gen=gen)
+            wv = r.wv
+        else:
+            raise ValueError(f"unknown aggregation rule {rule!r}")
+        new_vars = _split(r.new_state, global_vars)
+    return AggregateResult(new_vars, new_fg, wv, alpha, calls,
+                           is_updated)
+
+
 class RoundEngine:
     """Holds the round + eval computations for one experiment config."""
 
@@ -108,9 +298,19 @@ class RoundEngine:
         self.plans = plans
         self.num_segments = num_segments
         self.device = data.device
-        if hyper.aggregation != cfg.AGGR_MEAN:
-            raise NotImplementedError("only FedAvg is ported (ROADMAP A12)")
-        self.client_step = make_client_step(model_def, data, hyper)
+        self.fg_enabled = hyper.aggregation == cfg.AGGR_FOOLSGOLD
+        self.client_step = make_client_step(model_def, data, hyper,
+                                            self.fg_enabled)
+        # the fault layer (fl/faults.py and the quarantine pass): with
+        # fault_injection and the screen both off the robust path never runs
+        self.fault_cfg = flt.FaultConfig.from_params(params)
+        screen = params.get("screen_updates", "auto")
+        self.screening = (self.fault_cfg.enabled if screen == "auto"
+                          else bool(screen))
+        self.robust = self.fault_cfg.enabled or self.screening
+        self.min_surviving = max(1, int(params.get("min_surviving_clients",
+                                                   1)))
+        self.base_norm_mult = float(params.get("screen_norm_mult", 0.0))
         self.is_poison_run = bool(params["is_poison"])
         self.do_local_eval = bool(params.get("local_eval", True))
         self.eval_clean = make_eval_fn(model_def, data, poison=False)
@@ -142,6 +342,8 @@ class RoundEngine:
         start = ModelVars(_stack(global_vars.params, C),
                           _stack(global_vars.batch_stats, C))
         benign_mom = {k: torch.zeros_like(v) for k, v in start.params.items()}
+        fg_total = ({k: torch.zeros_like(v) for k, v in start.params.items()}
+                    if self.fg_enabled else {})
         seg_metrics, seg_bloss, seg_bdist, seg_deltas = [], [], [], []
         for s in range(n_seg):
             task = tasks_seq[s].to_device(dev)
@@ -152,6 +354,7 @@ class RoundEngine:
                                    active)
             start = res.end_vars
             benign_mom = res.benign_mom
+            fg_total = {k: v + res.fg_grads[k] for k, v in fg_total.items()}
             seg_metrics.append(res.metrics)
             seg_bloss.append(res.batch_loss)
             seg_bdist.append(res.batch_dist)
@@ -161,7 +364,9 @@ class RoundEngine:
         metrics = ClientMetrics(*(torch.stack(ls) for ls in
                                   zip(*seg_metrics)))
         delta_norms = torch.func.vmap(tree_global_norm)(deltas.params)
-        return TrainResult(deltas, metrics, delta_norms,
+        fg_feature = (self.model_def.similarity_param(fg_total).reshape(C, -1)
+                      if self.fg_enabled else None)
+        return TrainResult(deltas, fg_total, fg_feature, metrics, delta_norms,
                            torch.stack(seg_bloss),
                            torch.stack(seg_bdist), seg_deltas)
 
@@ -172,23 +377,11 @@ class RoundEngine:
     # --------------------------------------------------------- aggregate
     def aggregate_fn(self, global_vars: ModelVars, deltas: ModelVars,
                      gen: Optional[torch.Generator] = None,
-                     noise: Optional[ModelVars] = None) -> AggregateResult:
-        """FedAvg over the full state (the mean branch of the JAX
-        aggregate_fn). DP noise (diff_privacy) comes from `noise` when given,
-        else from `gen`."""
-        hyper = self.hyper
-        C = next(iter(deltas.params.values())).shape[0]
-        sigma = hyper.sigma if hyper.diff_privacy else 0.0
-        new_p = agg.fedavg_update(global_vars.params, deltas.params,
-                                  hyper.eta, hyper.no_models, sigma,
-                                  noise.params if noise else None, gen)
-        new_b = agg.fedavg_update(global_vars.batch_stats,
-                                  deltas.batch_stats, hyper.eta,
-                                  hyper.no_models, sigma,
-                                  noise.batch_stats if noise else None, gen)
-        zeros = torch.zeros((C,), dtype=torch.float32, device=self.device)
-        return AggregateResult(ModelVars(new_p, new_b), zeros, zeros, 1,
-                               True)
+                     noise: Optional[ModelVars] = None,
+                     **kw) -> AggregateResult:
+        """The configured rule: :func:`aggregate` with this engine's
+        hyperparameters."""
+        return aggregate(self.hyper, global_vars, deltas, gen, noise, **kw)
 
     # -------------------------------------------------------- evaluation
     def _zero_evals(self, n: int) -> EvalResult:
@@ -277,18 +470,94 @@ class RoundEngine:
     # ------------------------------------------------------------- round
     def round_fn(self, global_vars: ModelVars, tasks_seq: List[ClientTask],
                  idx_seq: np.ndarray, mask_seq: np.ndarray,
-                 gen: Optional[torch.Generator] = None):
-        """train → aggregate → local evals → global evals. Returns
-        (new_vars, payload); the payload slots are ordered as
-        the JAX package's round program orders them: (locals, globals,
-        metrics, delta_norms, wv, alpha, track_pair, is_updated, seg_locals,
-        robust_stats, forensic_stats)."""
+                 gen: Optional[torch.Generator] = None, *,
+                 num_samples: np.ndarray,
+                 fg_state: Optional[agg.FoolsGoldState] = None,
+                 fault_plan: Optional[flt.FaultPlan] = None,
+                 prev_deltas: Optional[ModelVars] = None,
+                 norm_mult: Optional[float] = None):
+        """train → [faults → screen] → aggregate → local evals → global
+        evals. Returns (new_vars, new_fg_state, payload, deltas_out); the
+        payload slots are ordered as the JAX package's round program orders
+        them: (locals, globals, metrics, delta_norms, wv, alpha, track_pair,
+        is_updated, seg_locals, robust_stats, forensic_stats).
+
+        `num_samples` [C]: each client's sample count (RFA's alphas; zero
+        marks a lane that is not counted). `norm_mult` switches the robust
+        path on: the screen's norm multiplier, <= 0 for the finite screen
+        only. With the fault layer on, `fault_plan` is the round's plan and
+        `prev_deltas` the stale lane's replay source; deltas_out is then
+        what the server received, for the next round's replay (None when
+        the stale lane is off)."""
+        dev = self.device
         train = self.train_fn(global_vars, tasks_seq, idx_seq, mask_seq)
-        res = self.aggregate_fn(global_vars, train.deltas, gen)
+        deltas, fg_grads, fg_feature = (train.deltas, train.fg_grads,
+                                        train.fg_feature)
+        ns = torch.from_numpy(np.asarray(num_samples, np.float32)).to(dev)
+        pids = torch.from_numpy(np.asarray(tasks_seq[0].participant_id,
+                                           np.int64)).to(dev)
+        nbt = torch.from_numpy(nbt_client_deltas(
+            mask_seq, np.stack([np.asarray(t.scale) for t in tasks_seq]))
+        ).to(dev)
+        agg_kw = dict(fg_state=fg_state, participant_ids=pids,
+                      num_samples=ns, nbt_deltas=nbt)
+        stats, deltas_out = None, None
+        if norm_mult is not None:
+            fcfg = self.fault_cfg
+            counted = ns > 0
+            reported = torch.ones_like(counted)
+            n_dropped = torch.zeros((), dtype=torch.int64, device=dev)
+            if fcfg.enabled:
+                plan = fault_plan.to(dev)
+                stale = prev_deltas if fcfg.stale_enabled else None
+                deltas = flt.perturb_tree(deltas, plan, fcfg, stale)
+                if self.fg_enabled:
+                    # FoolsGold aggregates the accumulators, not the deltas:
+                    # that payload is corrupted too (stale replay stays
+                    # delta-only)
+                    fg_grads = flt.perturb_tree(fg_grads, plan, fcfg)
+                    fg_feature = flt.perturb_tree(fg_feature, plan, fcfg)
+                reported = ~plan.dropped
+                n_dropped = torch.sum(plan.dropped & counted)
+            if fcfg.stale_enabled:
+                deltas_out = deltas   # what the server RECEIVED
+            if self.screening:
+                extra = (fg_grads,) if self.fg_enabled else ()
+                smask, _ = screen_client_updates(deltas, reported, counted,
+                                                 norm_mult, extra)
+            else:
+                # a client that never reported cannot be aggregated, with or
+                # without screening
+                smask = reported
+            n_quar = torch.sum(reported & ~smask & counted)
+            n_surv = torch.sum(smask & counted)
+            degraded = n_surv < self.min_surviving
+            res = self.aggregate_fn(global_vars, deltas, gen,
+                                    fg_grads=fg_grads, fg_feature=fg_feature,
+                                    mask=smask.to(torch.float32), **agg_kw)
+            # too few survivors: skip the aggregate, carry the global model
+            # and the defense state
+            new_vars = _map2(lambda g, a: torch.where(degraded, g, a),
+                             global_vars, res.new_vars)
+            new_fg = res.new_fg_state
+            if self.fg_enabled:
+                new_fg = agg.FoolsGoldState(torch.where(
+                    degraded, fg_state.memory, new_fg.memory))
+            gfin = torch.stack([torch.isfinite(v).all() for v in _merged(
+                new_vars).values()]).all()
+            stats = RobustStats(n_dropped, n_quar, n_surv, degraded, gfin,
+                                smask)
+            res = res._replace(new_vars=new_vars, new_fg_state=new_fg)
+        else:
+            res = self.aggregate_fn(global_vars, deltas, gen,
+                                    fg_grads=fg_grads, fg_feature=fg_feature,
+                                    **agg_kw)
         prev = (train.seg_deltas[-1] if train.seg_deltas else
                 _map2(lambda d, _: torch.zeros_like(d), train.deltas,
                       train.deltas))
-        task_last = tasks_seq[-1].to_device(self.device)
+        task_last = tasks_seq[-1].to_device(dev)
+        # the local battery evaluates what each client TRAINED (faults model
+        # the uplink): the pre-fault deltas
         locals_ = (self.local_evals(global_vars, train.deltas, task_last,
                                     prev) if self.do_local_eval else None)
         seg_l = (self.seg_local_evals(global_vars, train.seg_deltas,
@@ -299,5 +568,5 @@ class RoundEngine:
                       if self.hyper.track_batches else None)
         payload = (locals_, globals_, train.metrics, train.delta_norms,
                    res.wv, res.alpha, track_pair, res.is_updated, seg_l,
-                   None, None)
-        return res.new_vars, payload
+                   stats, None)
+        return res.new_vars, res.new_fg_state, payload, deltas_out

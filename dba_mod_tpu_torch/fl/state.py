@@ -9,7 +9,7 @@ all clients. ``build_client_tasks`` builds the rows on the host as numpy;
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -42,30 +42,44 @@ class ClientTask(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class RoundHyper:
-    """Static round hyperparameters of the FedAvg path (the robust rules'
-    fields join with ROADMAP A12)."""
+    """Static round hyperparameters (dba_mod_tpu/fl/state.py:51-84)."""
     momentum: float
     weight_decay: float
+    lr: float                  # global lr: FoolsGold's apply step uses it
     eta: float
     no_models: int
-    aggregation: str
+    aggregation: str           # cfg.AGGR_*
+    fg_use_memory: bool
     diff_privacy: bool
     sigma: float
+    geom_median_maxiter: int
+    max_update_norm: Optional[float] = None
     track_batches: bool = False
     alpha_loss: float = 1.0    # 1.0 ⇒ the blended-loss distance term is
                                # identically zero and is not computed
+    krum_m: int = 1            # multi-Krum selection count (krum only)
+    krum_f: int = 0            # assumed Byzantine count in the Krum score
+    trim_beta: float = 0.1     # trimmed-mean per-coordinate trim fraction
 
     @classmethod
     def from_params(cls, p: cfg.Params) -> "RoundHyper":
+        mun = p.get("max_update_norm")
         return cls(momentum=float(p["momentum"]),
                    weight_decay=float(p["decay"]),
+                   lr=float(p["lr"]),
                    eta=float(p["eta"]), no_models=int(p["no_models"]),
                    aggregation=p.aggregation,
+                   fg_use_memory=bool(p["fg_use_memory"]),
                    diff_privacy=bool(p["diff_privacy"]),
                    sigma=float(p["sigma"]),
+                   geom_median_maxiter=int(p["geom_median_maxiter"]),
+                   max_update_norm=(None if mun is None else float(mun)),
                    track_batches=bool(p.get("vis_train_batch_loss")
                                       or p.get("batch_track_distance")),
-                   alpha_loss=float(p["alpha_loss"]))
+                   alpha_loss=float(p["alpha_loss"]),
+                   krum_m=int(p.get("krum_m", 1)),
+                   krum_f=int(p.get("krum_byzantine_f", 0)),
+                   trim_beta=float(p.get("trimmed_mean_beta", 0.1)))
 
 
 def build_client_tasks(params: cfg.Params, agent_names: list, epoch: int,

@@ -1,5 +1,5 @@
 """CLI of the PyTorch port — the same surface as dba_mod_tpu.main for the
-synchronous FedAvg path:
+synchronous path:
 
     python -m dba_mod_tpu_torch.main --params configs/cifar_params.yaml
     python -m dba_mod_tpu_torch.main pretrain --params ... --epochs N

@@ -30,8 +30,9 @@ Tree = Mapping[str, torch.Tensor]
 
 _SOURCE = "fused_update.cu"
 _MAX_LEAVES = 120        # csrc/fused_update.cu kMaxLeaves
+_MAX_PTRS = 336          # csrc/fused_update.cu kMaxPtrs
 _TILE = 4096             # csrc/fused_update.cu kTile
-_KIND = {"sgd": 0, "acc": 1, "sel": 2}
+_KIND = {"sgd": 0, "sgd_acc": 1, "sel": 2}
 
 _lib = None
 _Table = None
@@ -79,17 +80,19 @@ def _load():
     vp = ctypes.c_void_p
 
     class LeafTable(ctypes.Structure):
-        _fields_ = [("a", vp * _MAX_LEAVES), ("b", vp * _MAX_LEAVES),
-                    ("c", vp * _MAX_LEAVES), ("n", ctypes.c_int * _MAX_LEAVES),
+        _fields_ = [("ptr", vp * _MAX_PTRS),
+                    ("n", ctypes.c_int * _MAX_LEAVES),
                     ("tile_start", ctypes.c_int * (_MAX_LEAVES + 1)),
+                    ("first", ctypes.c_ushort * _MAX_LEAVES),
                     ("kind", ctypes.c_ubyte * _MAX_LEAVES),
                     ("num_leaves", ctypes.c_int)]
 
-    for fn in ("fused_update_max_leaves", "fused_update_tile",
-               "fused_update_table_bytes"):
+    for fn in ("fused_update_max_leaves", "fused_update_max_ptrs",
+               "fused_update_tile", "fused_update_table_bytes"):
         getattr(lib, fn).restype = ctypes.c_int
         getattr(lib, fn).argtypes = []
     if (lib.fused_update_max_leaves() != _MAX_LEAVES
+            or lib.fused_update_max_ptrs() != _MAX_PTRS
             or lib.fused_update_tile() != _TILE
             or lib.fused_update_table_bytes() != ctypes.sizeof(LeafTable)):
         raise RuntimeError("csrc/fused_update.cu and ops/fused_update.py "
@@ -102,21 +105,38 @@ def _load():
     return lib
 
 
+def _chunks(entries) -> list:
+    """Split entries [(kind, tensors)] into runs that fit one leaf table:
+    at most _MAX_LEAVES leaves and _MAX_PTRS pointers each. The CIFAR
+    ResNet-18 state fits one table: 62 sgd + 40 sel leaves (266 pointers),
+    or 62 sgd_acc + 40 sel leaves (328 pointers) with FoolsGold on."""
+    chunks, cur, nptr = [], [], 0
+    for e in entries:
+        if cur and (len(cur) == _MAX_LEAVES or nptr + len(e[1]) > _MAX_PTRS):
+            chunks.append(cur)
+            cur, nptr = [], 0
+        cur.append(e)
+        nptr += len(e[1])
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
 def _tables(entries, C) -> list:
-    """entries: [(kind, a, b, c)] of [C, ...] tensors -> the kernel's leaf
-    tables, _MAX_LEAVES entries each (one table for the CIFAR main path's
-    102 leaves)."""
+    """entries: [(kind, tensors)] of [C, ...] tensors, in the order the
+    kernel reads them (sgd: w, g, m; sgd_acc: w, g, m, fg; sel: bn_old,
+    bn_new) -> the kernel's leaf tables, one launch each."""
     _load()
     tables = []
-    for start in range(0, len(entries), _MAX_LEAVES):
-        chunk = entries[start:start + _MAX_LEAVES]
+    for chunk in _chunks(entries):
         t = _Table()
-        tiles = 0
-        for i, (kind, a, b, c) in enumerate(chunk):
-            n = a.numel() // C
-            t.a[i] = a.data_ptr()
-            t.b[i] = b.data_ptr()
-            t.c[i] = c.data_ptr() if c is not None else 0
+        tiles = nptr = 0
+        for i, (kind, ts) in enumerate(chunk):
+            n = ts[0].numel() // C
+            t.first[i] = nptr
+            for x in ts:
+                t.ptr[nptr] = x.data_ptr()
+                nptr += 1
             t.n[i] = n
             t.kind[i] = _KIND[kind]
             t.tile_start[i] = tiles
@@ -198,9 +218,12 @@ def prepare_launch(lr: torch.Tensor, valid: torch.Tensor, params: Tree,
     # a Pallas notion with no CUDA counterpart.
     C, pl, gl, ml, fl, bnl, bol = _validated(lr, valid, params, grads, mom,
                                              fg, bn_new, bn_old)
-    entries = [("sgd", w, g, m) for w, g, m in zip(pl, gl, ml)]
-    entries += [("acc", f, g, None) for f, g in zip(fl, gl)]
-    entries += [("sel", bo, bn, None) for bn, bo in zip(bnl, bol)]
+    if fl:
+        entries = [("sgd_acc", (w, g, m, f))
+                   for w, g, m, f in zip(pl, gl, ml, fl)]
+    else:
+        entries = [("sgd", (w, g, m)) for w, g, m in zip(pl, gl, ml)]
+    entries += [("sel", (bo, bn)) for bn, bo in zip(bnl, bol)]
     tables = _tables(entries, C)
     return lambda: _launch(tables, lr, valid, C, momentum, weight_decay)
 

@@ -4,12 +4,13 @@ dba_mod_tpu/ops/sgd.py).
 The reference trains every client with ``torch.optim.SGD(lr, momentum,
 weight_decay)`` created fresh each round (image_train.py:33-35, :63-65), so
 momentum buffers start at zero within a round; the update itself is the
-fused kernel (ops/fused_update.py). The schedule keeps torch's
-float-milestone quirk (image_train.py:66-68).
+fused kernel (ops/fused_update.py), and ``sgd_step`` is FoolsGold's
+server step. The schedule keeps torch's float-milestone quirk
+(image_train.py:66-68).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +19,24 @@ import torch
 def sgd_init(params: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Zero momentum buffers shaped like `params`."""
     return {k: torch.zeros_like(v) for k, v in params.items()}
+
+
+def sgd_step(params: Mapping[str, torch.Tensor],
+             grads: Mapping[str, torch.Tensor],
+             momentum_buf: Mapping[str, torch.Tensor], lr: float,
+             momentum: float, weight_decay: float
+             ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One torch-SGD step (dba_mod_tpu/ops/sgd.py:36), functional: g + wd·p,
+    μ·buf + g, p - lr·buf. Returns (new_params, new_momentum_buf). FoolsGold
+    applies its aggregate through one such step with fresh (zero) buffers,
+    so momentum is a no-op there but weight decay is not."""
+    new_p, new_b = {}, {}
+    for k, p in params.items():
+        g = grads[k] + weight_decay * p
+        b = momentum * momentum_buf[k] + g
+        new_p[k] = p - lr * b
+        new_b[k] = b
+    return new_p, new_b
 
 
 def _milestone_hits(milestones: Sequence[float]) -> list:

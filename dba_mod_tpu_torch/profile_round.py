@@ -5,11 +5,11 @@
 Builds the experiment at the config's full width on synthetic data (fresh
 weights: the timing does not depend on them), runs one warm-up round, then
 times one poisoned round phase by phase with the device synchronised
-between phases (train, FedAvg, local battery, global battery), and runs the
-same round's inputs again under torch.profiler for the device time by
-kernel and the device's busy time (the union of kernel intervals; its share
-is taken against the untraced round's wall). Prints the profiler's table and one
-JSON line.
+between phases (train, aggregate under the config's rule, local battery,
+global battery), and runs the same round's inputs again under
+torch.profiler for the device time by kernel and the device's busy time
+(the union of kernel intervals; its share is taken against the untraced
+round's wall). Prints the profiler's table and one JSON line.
 """
 from __future__ import annotations
 
@@ -59,7 +59,7 @@ def _profile(exp) -> dict:
     warm_s = time.perf_counter() - t0
 
     def phases(inputs):
-        tasks, idx, mask, _ = inputs
+        tasks, idx, mask, num_samples = inputs
         out = {"active_steps": int(mask[0].any(axis=(0, 3)).sum())}
         gv = exp.global_vars
         _sync(dev)
@@ -70,7 +70,12 @@ def _profile(exp) -> dict:
         out["train_s"] = time.perf_counter() - t
         out["fused_launches"] = fu.fused_step_update.launches
         t = time.perf_counter()
-        agg = eng.aggregate_fn(gv, train.deltas)
+        agg = eng.aggregate_fn(
+            gv, train.deltas, fg_state=exp.fg_state, fg_grads=train.fg_grads,
+            fg_feature=train.fg_feature,
+            participant_ids=torch.from_numpy(
+                tasks[0].participant_id.astype("int64")).to(dev),
+            num_samples=torch.from_numpy(num_samples).to(dev))
         _sync(dev)
         out["aggregate_s"] = time.perf_counter() - t
         t = time.perf_counter()

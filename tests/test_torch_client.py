@@ -6,7 +6,11 @@ Covers a poison lane (MultiStepLR row, stamping, fresh momentum, ×scale
 epilogue), benign lanes continuing a carried momentum, a client with fewer
 samples than the plan width (masked steps) and an all-padding epoch. MNIST
 has no BatchNorm and no ReLU-gate chaos at this size: deltas agree to
-float roundoff (bound 1e-6, as tests/test_parity_ab.py's MNIST round)."""
+float roundoff (bound 1e-6, as tests/test_parity_ab.py's MNIST round).
+With FoolsGold on, the step's gradient accumulators (the fused update's
+`sgd_acc` leaves) agree with the JAX client step's `fg_grads` to 1e-5
+relative to the largest accumulated value: they are sums of raw gradients
+over the segment's steps, not lr-scaled like the deltas."""
 import jax
 import jax.numpy as jnp
 from pathlib import Path
@@ -43,7 +47,8 @@ def _one_torch_thread():
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
 
-def test_mnist_client_segment_matches_jax():
+@pytest.mark.parametrize("fg_on", [False, True], ids=["fg_off", "fg_on"])
+def test_mnist_client_segment_matches_jax(fg_on):
     import yaml
     raw = yaml.safe_load(open(CONFIGS / "smoke_params.yaml"))
     raw.update(internal_epochs=2, internal_poison_epochs=5)  # milestones fire
@@ -67,7 +72,7 @@ def test_mnist_client_segment_matches_jax():
               for k, v in tmv.params.items()}
 
     # JAX: vmapped client step
-    jstep = jmake(jdef, jdevdata(data, jp), JHyper.from_params(jp), False)
+    jstep = jmake(jdef, jdevdata(data, jp), JHyper.from_params(jp), fg_on)
     stack = lambda l: jnp.broadcast_to(jnp.asarray(l), (3,) + l.shape)
     start = jax.tree_util.tree_map(stack, jmv)
     per_client = [convert.to_jax_numpy(tdef.name, ModelVars(
@@ -82,7 +87,7 @@ def test_mnist_client_segment_matches_jax():
 
     # port
     step = make_client_step(tdef, make_image_device_data(
-        data, tp, torch.device("cpu")), RoundHyper.from_params(tp))
+        data, tp, torch.device("cpu")), RoundHyper.from_params(tp), fg_on)
     start_t = ModelVars({k: v.unsqueeze(0).expand((3,) + v.shape).clone()
                          for k, v in tmv.params.items()}, {})
     res = step(start_t, {k: torch.from_numpy(v) for k, v in mom_np.items()},
@@ -103,6 +108,16 @@ def test_mnist_client_segment_matches_jax():
         for a, b in zip(jax.tree_util.tree_leaves(got_mom),
                         jax.tree_util.tree_leaves(j_mom)):
             np.testing.assert_allclose(a, b, rtol=0, atol=1e-6)
+    assert bool(res.fg_grads) == fg_on
+    for c in range(3 if fg_on else 0):
+        got_fg, _ = convert.to_jax_numpy(tdef.name, ModelVars(
+            {k: v[c] for k, v in res.fg_grads.items()}, {}))
+        j_fg = jax.tree_util.tree_map(lambda l: l[c], jres.fg_grads)
+        for a, b in zip(jax.tree_util.tree_leaves(got_fg),
+                        jax.tree_util.tree_leaves(j_fg)):
+            assert np.abs(b).max() > 0
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=1e-5 * np.abs(b).max())
     for f in ("correct", "count", "poison_count"):
         np.testing.assert_array_equal(getattr(res.metrics, f).numpy(),
                                       np.asarray(getattr(jres.metrics, f)))

@@ -191,13 +191,13 @@ def test_fedavg_matches_jax():
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"aggregation_methods": "foolsgold"}, "A12"),
+    ({"fault_injection": True, "fault_host_loss_prob": 0.1}, "A18"),
     ({"type": "loan"}, "A11"),
     ({"compute_dtype": "bfloat16"}, "A20"),
     ({"mode": "async"}, "A16"),
     ({"num_devices": 4}, "A18"),
-    ({"fault_injection": True}, "A13"),
-    ({"screen_updates": True}, "A13"),
+    ({"pipeline_rounds": True}, "A17"),
+    ({"sequential_debug": True}, "A19"),
     ({"forensics": True}, "A14"),
     ({"model_health_check": True}, "A14"),
     ({"telemetry": True}, "A17"),
