@@ -35,7 +35,23 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    same weights, under FedAvg and under FoolsGold;
 5b. one MNIST smoke round on the card with a corrupt fault lane and the
    quarantine screen on: at least one client quarantined, the committed
-   global model finite.
+   global model finite;
+6. the Tiny-ImageNet path at full width (configs/tiny_params.yaml: the
+   64-base ResNet-18, 11.28 M parameters, on the synthetic set of the full
+   100,000 / 10,000 size, made once and read back from its npz cache):
+   pretrain one round, resume it by name, two poisoned FedAvg rounds, then
+   one poisoned FoolsGold round from the same pretrain. One fused launch
+   per local step; round_time, the engine's train / aggregate / local and
+   global battery seconds and the peak device memory of each run;
+7. LOAN through the CLI (configs/loan_params.yaml, 51 synthetic states):
+   pretrain, resume, two poisoned rounds with the adaptive poison LR that
+   each round's probe chose, one fused launch per step; then one poisoned
+   LOAN round on the card against the same round on the CPU, from the same
+   weights and the same CPU-drawn dropout masks: global max abs diff at
+   most 5e-6.
+
+Phase 3 also runs (as 3b) at the Tiny-ImageNet size (FoolsGold off and on)
+and at the LOAN size, so the kernels line has five rows.
 
 The last lines are a JSON object with the kernels' numbers, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}. Exits
@@ -43,6 +59,7 @@ non-zero, printing no result, without a CUDA card or without the package.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -126,13 +143,17 @@ def device_ms(fn, reps: int = 20, name: str = "") -> float | None:
 
 
 # ---------------------------------------------------------------- phase 3
-def check_fused_update(dev) -> list:
+def check_fused_update(dev, config: str = "cifar_params.yaml",
+                       label: str = "", fg_cases=(False, True)) -> list:
+    """The kernel against its plain version on the state of `config`'s
+    model at C = 10 (FoolsGold on and off, with invalid lanes), then timed
+    for each of `fg_cases`. `label` tags the rows' names."""
     import torch
     from dba_mod_tpu_torch.config import Params
     from dba_mod_tpu_torch.models import build_model
     from dba_mod_tpu_torch.ops import fused_update as fu
 
-    params = Params.from_yaml(REPO / "configs" / "cifar_params.yaml")
+    params = Params.from_yaml(REPO / "configs" / config)
     mv = build_model(params).init_vars(0, dev)
     C, mu, wd = 10, float(params["momentum"]), float(params["decay"])
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -174,16 +195,21 @@ def check_fused_update(dev) -> list:
                             f"fused_step_update differs from its plain "
                             f"version (fg={fg_on}, leaf {k}): max abs "
                             f"{err}")
-    log(f"phase 3: fused_step_update bitwise equal to its plain version "
-        f"(62 param + 40 BN leaves, C={C}, FoolsGold on/off, invalid lanes)")
+    n_el = sum(v.numel() for v in mv.params.values())
+    log(f"phase 3{'b' if label else ''}: fused_step_update bitwise equal to "
+        f"its plain version on {config} ({len(mv.params)} param + "
+        f"{len(mv.batch_stats)} BN leaves, {n_el} params per client, C={C}, "
+        f"FoolsGold on/off, invalid lanes)")
+    del st, want
+    torch.cuda.empty_cache()
 
     # timing at the main path's shapes, every client valid: FoolsGold off
     # (FedAvg, RFA, ...) and on (the sgd_acc leaves)
-    return [time_fused_update(state(fg_on), lr, mu, wd, max_err, fg_on, C)
-            for fg_on in (False, True)]
+    return [time_fused_update(state(fg_on), lr, mu, wd, max_err, fg_on, C,
+                              label) for fg_on in fg_cases]
 
 
-def time_fused_update(st, lr, mu, wd, max_err, fg_on, C) -> dict:
+def time_fused_update(st, lr, mu, wd, max_err, fg_on, C, label="") -> dict:
     """The kernel's time over launches of one prepared leaf table (so the
     wrapper's host work is not in it), that host work on its own, the whole
     wrapper in steady state, the plain version, and a PyTorch library
@@ -237,8 +263,9 @@ def time_fused_update(st, lr, mu, wd, max_err, fg_on, C) -> dict:
     flops = (7 if fg_on else 6) * n_p
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = flops / FP32_FLOPS * 1e3
-    return {"name": ("fused_step_update[foolsgold]" if fg_on
-                     else "fused_step_update"), "route": "cuda",
+    tags = [t for t in (label, "foolsgold" if fg_on else "") if t]
+    return {"name": "fused_step_update" + (f"[{','.join(tags)}]" if tags
+                                           else ""), "route": "cuda",
             "source": "dba_mod_tpu_torch/csrc/fused_update.cu",
             "replaces": "dba_mod_tpu/ops/fused_update.py:69",
             "launches": 0, "max_abs_err": max_err, "ms": ms,
@@ -536,6 +563,251 @@ def time_aggregation_rules(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 6
+def _watch_phases(record: dict):
+    """Wrap the round engine's phases (train, aggregate, local and global
+    battery) so each call adds its device-synced seconds to record[name];
+    returns the undo function. The syncs add a few host waits a round."""
+    import torch
+    from dba_mod_tpu_torch.fl import rounds
+    names = ("train_fn", "aggregate_fn", "local_evals", "global_evals")
+    real = {n: getattr(rounds.RoundEngine, n) for n in names}
+
+    def timed(name):
+        def call(self, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = real[name](self, *args, **kw)
+            torch.cuda.synchronize()
+            record.setdefault(name, []).append(time.perf_counter() - t)
+            return res
+        return call
+
+    for n in names:
+        setattr(rounds.RoundEngine, n, timed(n))
+    return lambda: [setattr(rounds.RoundEngine, n, f)
+                    for n, f in real.items()]
+
+
+def _train_rounds(cfg_path: Path, resume: str, epochs: int, run_dir: Path,
+                  batch: int, want_epochs: list, what: str) -> dict:
+    """Resume `resume` and train through `epochs` via the CLI; check one
+    fused launch per local step, the recorded epochs, that every round
+    poisoned and that accuracies are finite. Returns the rounds' numbers:
+    round_time, the engine's phase seconds and the peak device memory."""
+    import torch
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    phases: dict = {}
+    undo = _watch_phases(phases)
+    fu.fused_step_update.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        if cli_main(["train", "--params", str(cfg_path), "--resume", resume,
+                     "--epochs", str(epochs)]) != 0:
+            raise AssertionError(f"{what}: train failed")
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    train_s = time.perf_counter() - t0
+    launches = fu.fused_step_update.launches
+    (folder,) = list(run_dir.iterdir())
+    steps = expected_launches(folder / "train_result.csv", batch)
+    if launches != steps or launches == 0:
+        raise AssertionError(f"{what}: fused kernel launched {launches} "
+                             f"times, the rounds ran {steps} local steps")
+    rows = [json.loads(l) for l in
+            (folder / "metrics.jsonl").read_text().splitlines() if l.strip()]
+    if [r["epoch"] for r in rows] != want_epochs:
+        raise AssertionError(f"{what}: recorded epochs "
+                             f"{[r['epoch'] for r in rows]}")
+    for r in rows:
+        if not r["adversaries"]:
+            raise AssertionError(f"{what}: round {r['epoch']} did not poison")
+        for k in ("global_acc", "backdoor_acc"):
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f"{what}: non-finite {k} in {r}")
+    with open(folder / "round_result.csv", newline="") as f:
+        round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
+    return {"folder": folder, "launches": launches, "steps": steps,
+            "train_s": train_s, "round_s": round_s,
+            "phase_s": {k: [round(x, 4) for x in v]
+                        for k, v in phases.items()},
+            "peak_mb": torch.cuda.max_memory_allocated() / 1e6,
+            "global_acc": [r["global_acc"] for r in rows],
+            "backdoor_acc": [r["backdoor_acc"] for r in rows],
+            "global_loss": [r["global_loss"] if math.isfinite(
+                float(r["global_loss"])) else str(r["global_loss"])
+                for r in rows]}
+
+
+def run_tiny_path(tmp: Path) -> dict:
+    """The Tiny-ImageNet main path at full width: configs/tiny_params.yaml
+    (full 64-base ResNet-18, 100 participants, 10 per round, batch 64,
+    Dirichlet 0.01, 4 adversaries) on the synthetic set of the full
+    100,000 / 10,000 size. The set is made once with the port's generator
+    and written as the tiny-imagenet-200.npz cache that load_tiny_imagenet
+    reads, so the three CLI runs load it instead of drawing 1.2 G normal
+    values each. Pretrain one round, resume it by name, two FedAvg rounds
+    that both poison, then one FoolsGold round from the same pretrain."""
+    import numpy as np
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.data.datasets import synthetic_image_dataset
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.models import build_model
+
+    raw = yaml.safe_load((REPO / "configs" / "tiny_params.yaml").read_text())
+    t0 = time.perf_counter()
+    data = synthetic_image_dataset("tiny-imagenet-200",
+                                   seed=int(raw["random_seed"]))
+    (tmp / "tiny_data").mkdir()
+    np.savez(tmp / "tiny_data" / "tiny-imagenet-200.npz",
+             train_x=data.train_images, train_y=data.train_labels,
+             test_x=data.test_images, test_y=data.test_labels)
+    n_train, n_test = len(data.train_labels), len(data.test_labels)
+    del data
+    data_s = time.perf_counter() - t0
+    if (n_train, n_test) != (100000, 10000):
+        raise AssertionError(f"synthetic Tiny set of {n_train}/{n_test}")
+    raw.update(data_dir=str(tmp / "tiny_data"), run_dir=str(tmp / "runs_tiny"),
+               checkpoint_dir=str(tmp / "ckpt"), save_model=True,
+               save_on_epochs=[2, 3],
+               **{"0_poison_epochs": [2], "1_poison_epochs": [3],
+                  "2_poison_epochs": [], "3_poison_epochs": []})
+    cfg_path = tmp / "tiny_smoke.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    t0 = time.perf_counter()
+    if cli_main(["pretrain", "--params", str(cfg_path), "--epochs", "1",
+                 "--out", "tiny_pretrain/smoke"]) != 0:
+        raise AssertionError("tiny pretrain failed")
+    pretrain_s = time.perf_counter() - t0
+    b = int(raw["batch_size"])
+    fedavg = _train_rounds(cfg_path, "tiny_pretrain/smoke", 3,
+                           tmp / "runs_tiny", b, [2, 3], "tiny FedAvg")
+    like = build_model(Params.from_dict(raw)).init_vars(
+        0, torch.device("cpu"))
+    gv, epoch, _ = ckpt.load_checkpoint(fedavg["folder"] / "model_last.pt.tar",
+                                        like)
+    ok, why = ckpt.verify_checkpoint(fedavg["folder"] / "model_last.pt.tar")
+    if not ok or epoch != 3 or not all(
+            bool(torch.isfinite(v).all()) for v in gv.params.values()):
+        raise AssertionError(f"tiny saved model: epoch {epoch}, {why}")
+    # FedAvg averages the BN running stats with the ×100 adversary's delta,
+    # as CIFAR's phase 4 shows: a negative running variance makes the
+    # round's eval loss NaN while the weights stay finite
+    min_var = min(float(v.min()) for k, v in gv.batch_stats.items()
+                  if k.endswith("running_var"))
+    fg_raw = dict(raw, aggregation_methods="foolsgold",
+                  run_dir=str(tmp / "runs_tiny_fg"))
+    fg_path = tmp / "tiny_foolsgold.yaml"
+    fg_path.write_text(yaml.safe_dump(fg_raw))
+    fg = _train_rounds(fg_path, "tiny_pretrain/smoke", 2,
+                       tmp / "runs_tiny_fg", b, [2], "tiny FoolsGold")
+    for name, r in (("FedAvg", fedavg), ("FoolsGold", fg)):
+        log(f"phase 6: Tiny-ImageNet {name}, {len(r['round_s'])} poisoned "
+            f"full-width round(s): round_time {r['round_s']}; phase seconds "
+            f"{r['phase_s']}; {r['launches']} fused launches = {r['steps']} "
+            f"local steps; peak {r['peak_mb']:.0f} MB; acc "
+            f"{r['global_acc']} backdoor {r['backdoor_acc']} global loss "
+            f"{r['global_loss']}")
+    log(f"phase 6: synthetic Tiny set {n_train}/{n_test} made and cached in "
+        f"{data_s:.1f}s; pretrain {pretrain_s:.1f}s; FedAvg min BN running "
+        f"var {min_var:.4g}")
+    for r in (fedavg, fg):
+        del r["folder"]
+    return {"data_s": data_s, "pretrain_s": pretrain_s, "fedavg": fedavg,
+            "foolsgold": fg, "min_running_var": min_var}
+
+
+# ---------------------------------------------------------------- phase 7
+@contextlib.contextmanager
+def _probe_lines():
+    """Collects the experiment's poison-probe log lines: the adaptive LOAN
+    poison LR each poisoned round used."""
+    import logging
+    lines: list = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "poison probe" in msg:
+                lines.append(msg)
+
+    grab, logger = Grab(), logging.getLogger("dba_mod_tpu_torch")
+    logger.addHandler(grab)
+    try:
+        yield lines
+    finally:
+        logger.removeHandler(grab)
+
+
+def run_loan_path(tmp: Path) -> dict:
+    """LOAN through the CLI: configs/loan_params.yaml (51 synthetic
+    states, 10 per round, batch 64, LoanNet with dropout, 3 adversary
+    states with feature triggers, scale 30) — pretrain one round, resume
+    it, two poisoned rounds (the adversaries' poison epochs cut to 2 and
+    3), each with its adaptive poison LR from the probe; then one poisoned
+    round on the card against the same round on the CPU, from the same
+    weights and the same CPU-drawn dropout masks."""
+    import yaml
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.main import main as cli_main
+
+    raw = yaml.safe_load((REPO / "configs" / "loan_params.yaml").read_text())
+    raw.update(synthetic_data=True, run_dir=str(tmp / "runs_loan"),
+               checkpoint_dir=str(tmp / "ckpt"),
+               **{"0_poison_epochs": [2], "1_poison_epochs": [3],
+                  "2_poison_epochs": []})
+    cfg_path = tmp / "loan_smoke.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    t0 = time.perf_counter()
+    if cli_main(["pretrain", "--params", str(cfg_path), "--epochs", "1",
+                 "--out", "loan_pretrain/smoke"]) != 0:
+        raise AssertionError("loan pretrain failed")
+    pretrain_s = time.perf_counter() - t0
+    with _probe_lines() as probe:
+        r = _train_rounds(cfg_path, "loan_pretrain/smoke", 3,
+                          tmp / "runs_loan", int(raw["batch_size"]), [2, 3],
+                          "LOAN")
+    if len(probe) != 2:
+        raise AssertionError(f"LOAN probe lines {probe}")
+    del r["folder"]
+    r["probe"] = probe
+    log(f"phase 7: LOAN, 2 poisoned rounds: round_time {r['round_s']}; "
+        f"phase seconds {r['phase_s']}; {r['launches']} fused launches = "
+        f"{r['steps']} local steps; peak {r['peak_mb']:.0f} MB; acc "
+        f"{r['global_acc']} backdoor {r['backdoor_acc']}; probe "
+        f"{probe}; pretrain {pretrain_s:.1f}s")
+
+    # one round card vs CPU: the same init (a CPU generator), plans and
+    # dropout masks (drawn on the CPU, keyed by seed, epoch and segment)
+    one = dict(raw, resumed_model=False, **{"0_poison_epochs": [1]})
+    outs = {}
+    for name in ("cuda", "cpu"):
+        exp = Experiment(Params.from_dict(dict(
+            one, run_dir=str(tmp / f"loan_{name}"))), save_results=False,
+            device=name)
+        res = exp.run_round(1)
+        outs[name] = (res, {k: v.cpu() for k, v in
+                            exp.global_vars.params.items()})
+    diff = max(float((outs["cuda"][1][k] - outs["cpu"][1][k]).abs().max())
+               for k in outs["cpu"][1])
+    acc_gap = abs(outs["cuda"][0]["global_acc"] - outs["cpu"][0]["global_acc"])
+    if not diff <= 5e-6 or not acc_gap <= 1.0:
+        raise AssertionError(f"card vs CPU LOAN round: global max abs diff "
+                             f"{diff}, accuracy gap {acc_gap}")
+    log(f"phase 7: LOAN round card vs CPU: global max abs diff {diff:.3g}, "
+        f"accuracy gap {acc_gap:.3g}")
+    r.update(pretrain_s=pretrain_s, card_vs_cpu=diff, acc_gap=acc_gap)
+    return r
+
+
 # ---------------------------------------------------------------- phase 5
 def check_small_reference(tmp: Path) -> dict:
     """One poisoned MNIST smoke round (smoke_params.yaml at its own small
@@ -626,7 +898,11 @@ def main() -> int:
         f"(nvcc seconds {cuda_build.build_seconds}); load total "
         f"{time.perf_counter() - t0:.2f}s")
 
-    kernels = check_fused_update(dev)
+    kernels = (check_fused_update(dev)
+               + check_fused_update(dev, "tiny_params.yaml", "tiny")
+               + check_fused_update(dev, "loan_params.yaml", "loan",
+                                   fg_cases=(False,)))
+    torch.cuda.empty_cache()
     for k in kernels:
         log(f"phase 3: {k['name']} kernel {k['ms']:.4f} ms (profiler "
             f"{k['kernel_profiler_ms']}), bound {k['bound_ms']:.4f} ms "
@@ -645,12 +921,18 @@ def main() -> int:
         rules = time_aggregation_rules(dev)
         small = check_small_reference(tmp)
         fault = check_fault_round(tmp)
+        tiny = run_tiny_path(tmp)
+        kernels[2]["launches"] = tiny["fedavg"]["launches"]
+        kernels[3]["launches"] = tiny["foolsgold"]["launches"]
+        loan = run_loan_path(tmp)
+        kernels[4]["launches"] = loan["launches"]
 
     for k in kernels:
         del k["bytes"]
     print(json.dumps({"main_path": path, "robust_rounds": robust,
                       "aggregate_ms": rules, "small_reference": small,
-                      "fault_round": fault}), flush=True)
+                      "fault_round": fault, "tiny_path": tiny,
+                      "loan_path": loan}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -350,8 +350,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 def check_ported(raw: Dict[str, Any]) -> None:
     """Raise NotImplementedError for a knob whose code path the port does
     not carry yet. Every default passes."""
-    if raw["type"] in (TYPE_LOAN, TYPE_TINYIMAGENET):
-        raise _unported(f"type: {raw['type']}", "A11")
     if str(raw["compute_dtype"]) not in ("float32", "f32"):
         raise _unported(f"compute_dtype: {raw['compute_dtype']}",
                         "A20 (bf16)")
@@ -537,6 +535,10 @@ class Params:
         return self.raw["type"]
 
     @property
+    def is_image(self) -> bool:
+        return self.type in IMAGE_TYPES
+
+    @property
     def aggregation(self) -> str:
         return self.raw["aggregation_methods"]
 
@@ -612,6 +614,20 @@ class Params:
                 pattern.extend(self.raw[f"{i}_poison_pattern"])
             return pattern
         return list(self.raw[f"{adv_index}_poison_pattern"])
+
+    def poison_trigger_features_for(self, adv_index: int):
+        """LOAN feature trigger (names, values) for slot; -1 = all
+        concatenated (reference loan_train.py:47-57)."""
+        names: List[str] = []
+        values: List[float] = []
+        if adv_index == -1:
+            for i in range(int(self.raw["trigger_num"])):
+                names.extend(self.raw[f"{i}_poison_trigger_names"])
+                values.extend(self.raw[f"{i}_poison_trigger_values"])
+        else:
+            names = list(self.raw[f"{adv_index}_poison_trigger_names"])
+            values = list(self.raw[f"{adv_index}_poison_trigger_values"])
+        return names, values
 
     # ---------------------------------------------------------------- run dir
     def write_yaml(self, folder: Path) -> None:

@@ -10,10 +10,13 @@ tensors; ``to_jax_numpy`` is its inverse. The mapping:
   ``weight/bias`` and ``running_mean/running_var``.
 
 The port's MnistNet flattens its activations in NHWC order like flax, so
-its fc1 needs no row permutation. ``fg_memory_from_jax`` /
-``fg_memory_to_jax`` carry the FoolsGold memory, whose rows flatten the
-similarity layer in each package's own layout. Used by the parity tests and
-by anyone moving a checkpoint between the two packages.
+its fc1 needs no row permutation. The CIFAR and Tiny-ImageNet ResNet-18s are
+one flax class, so their trees have the same module names (Tiny's stem
+kernel is 7×7); LoanNet's ``Dense_i`` is the port's ``fc{i+1}``.
+``fg_memory_from_jax`` / ``fg_memory_to_jax`` carry the FoolsGold memory,
+whose rows flatten the similarity layer in each package's own layout. Used
+by the parity tests and by anyone moving a checkpoint between the two
+packages.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 
 from dba_mod_tpu_torch.models import ModelVars
-from dba_mod_tpu_torch.models.resnet import _has_shortcut, block_plan
+from dba_mod_tpu_torch.models.resnet import (CIFAR18, TINY18, _has_shortcut,
+                                             block_plan)
 
 Nested = Dict[str, Any]
 
@@ -54,7 +58,12 @@ def _pairs(model_name: str):
                 (("Dense_0", "bias"), "fc1.bias", "id"),
                 (("Dense_1", "kernel"), "fc2.weight", "dense"),
                 (("Dense_1", "bias"), "fc2.bias", "id")]
-    if model_name == "CifarResNet18":
+    if model_name == "LoanNet":
+        return [pair for i in range(3) for pair in (
+            ((f"Dense_{i}", "kernel"), f"fc{i + 1}.weight", "dense"),
+            ((f"Dense_{i}", "bias"), f"fc{i + 1}.bias", "id"))]
+    if model_name in ("CifarResNet18", "TinyResNet18"):
+        spec = CIFAR18 if model_name == "CifarResNet18" else TINY18
         out = []
 
         def conv(path, key):
@@ -70,7 +79,7 @@ def _pairs(model_name: str):
 
         conv(("Conv_0",), "stem_conv")
         bn(("BatchNorm_0",), "stem_bn")
-        for i, (cin, planes, stride) in enumerate(block_plan()):
+        for i, (cin, planes, stride) in enumerate(block_plan(spec)):
             b = (f"BasicBlock_{i}",)
             conv(b + ("Conv_0",), f"blocks.{i}.conv1")
             bn(b + ("BatchNorm_0",), f"blocks.{i}.bn1")

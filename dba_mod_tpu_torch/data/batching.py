@@ -15,7 +15,7 @@ parallel clients, so parity here is statistical (SURVEY §7.2.4).
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 
@@ -82,3 +82,15 @@ def build_eval_plan(indices: np.ndarray, batch_size: int) -> EvalPlan:
     mask[:n] = True
     return EvalPlan(idx=idx.reshape(S, batch_size).astype(np.int32),
                     mask=mask.reshape(S, batch_size))
+
+
+def stack_ragged(arrays: List[np.ndarray], pad_value=0) -> np.ndarray:
+    """Stack per-client ragged arrays into [C, max_n, ...] with padding —
+    used for LOAN per-state shards."""
+    C = len(arrays)
+    max_n = max(a.shape[0] for a in arrays)
+    out = np.full((C, max_n) + arrays[0].shape[1:], pad_value,
+                  arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[i, :a.shape[0]] = a
+    return out

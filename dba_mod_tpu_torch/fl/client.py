@@ -23,6 +23,12 @@ step whose batch mask is empty for EVERY client is skipped on the host: it
 is an exact no-op in the JAX program too, and the plan (numpy) says so
 without a device sync.
 
+A dropout model (LoanNet) takes the segment's keep masks as an input, one
+[C, E, S, B, width] tensor per dropout layer, and each step passes its
+[C, B, width] slice into the vmapped loss: nothing draws random numbers
+inside vmap, so the card and the CPU compute the same step from the same
+masks, and the tests can hand in the JAX package's own masks.
+
 Under FoolsGold the step also accumulates each client's raw gradient into
 per-segment `fg` accumulators (zeros at the segment start,
 dba_mod_tpu/fl/client.py:93), inside the same fused launch (the kernel's
@@ -67,13 +73,16 @@ def _per_client(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 def make_client_step(model_def: ModelDef, data: DeviceData,
                      hyper: RoundHyper, fg_enabled: bool = False):
     """Returns client_step(start_vars, benign_mom, task, idx [C,E,S,B],
-    mask [C,E,S,B], active [E,S]) -> SegmentResult. `task` holds device
-    tensors; idx/mask are device tensors and `active` is the host-side
-    any-client-valid map of the same plan."""
+    mask [C,E,S,B], active [E,S], dropout) -> SegmentResult. `task` holds
+    device tensors; idx/mask are device tensors and `active` is the
+    host-side any-client-valid map of the same plan. `dropout`: the
+    segment's keep masks ([C,E,S,B,width] bool per dropout layer) for a
+    dropout model, else ()."""
     use_dist = hyper.alpha_loss != 1.0
 
-    def loss_fn(p, bn, x, y, bmask, anchor, alpha):
-        logits, new_bn = model_def.apply(ModelVars(p, bn), x, train=True)
+    def loss_fn(p, bn, x, y, bmask, anchor, alpha, drop):
+        logits, new_bn = model_def.apply(ModelVars(p, bn), x, train=True,
+                                         dropout=drop)
         ce = cross_entropy(logits, y, bmask)
         if use_dist:
             loss = alpha * ce + (1.0 - alpha) * tree_dist_norm(p, anchor)
@@ -88,7 +97,7 @@ def make_client_step(model_def: ModelDef, data: DeviceData,
 
     def client_step(start_vars: ModelVars, benign_mom: Dict,
                     task: ClientTask, idx: torch.Tensor, mask: torch.Tensor,
-                    active: np.ndarray) -> SegmentResult:
+                    active: np.ndarray, dropout=()) -> SegmentResult:
         C, E, S, _ = idx.shape
         dev = idx.device
         params0, bn0 = start_vars.params, start_vars.batch_stats
@@ -116,8 +125,9 @@ def make_client_step(model_def: ModelDef, data: DeviceData,
                 x, y = data.fetch_train(task.slot, bidx)
                 x, y, sel = data.stamp(x, y, task.adv_index,
                                        task.poisoning_per_batch)
+                drop = tuple(d[:, e, s] for d in dropout)
                 grads, (loss, (logits, new_bn)) = grad_fn(
-                    params, bn, x, y, bmask, params0, alpha)
+                    params, bn, x, y, bmask, params0, alpha, drop)
                 bmaskf = bmask.to(torch.float32)
                 vf = (torch.sum(bmaskf, dim=-1) > 0).to(torch.float32)
                 fused_step_update(lr, vf, params, grads, mom, fg, new_bn, bn,

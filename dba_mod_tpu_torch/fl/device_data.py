@@ -1,10 +1,13 @@
 """Device-resident datasets and the fetch/stamp closures used by the client
-step (port of dba_mod_tpu/fl/device_data.py:40-66).
+step (port of dba_mod_tpu/fl/device_data.py).
 
-The train and test sets live on the device once, as uint8 NHWC, and are
-scaled to [0, 1] at gather time (the reference's ToTensor()-only pipeline,
-image_helper.py:178-201). A batch fetch is one index gather: the host
-ships only the int32 batch plans.
+The image train and test sets live on the device once, as uint8 NHWC, and
+are scaled to [0, 1] at gather time (the reference's ToTensor()-only
+pipeline, image_helper.py:178-201). The LOAN state shards are ragged: they
+live on the device stacked to [states, max_n, F] float32, and `slot` picks a
+row's state; padded rows are never read, because the batch and eval plans
+index real rows only (their masks cover the rest). A batch fetch is one
+index gather: the host ships only the int32 batch plans.
 """
 from __future__ import annotations
 
@@ -15,10 +18,12 @@ import numpy as np
 import torch
 
 from dba_mod_tpu_torch import config as cfg
-from dba_mod_tpu_torch.data.datasets import ImageData
+from dba_mod_tpu_torch.data.batching import stack_ragged
+from dba_mod_tpu_torch.data.datasets import ImageData, LoanData
 from dba_mod_tpu_torch.ops import triggers
 
-# fetch(slot, idx[..., B]) -> (x[..., B, H, W, ch] float32, y[..., B] int64)
+# fetch(slot, idx[..., B]) -> (x[..., B, H, W, ch] or [..., B, F] float32,
+#                              y[..., B] int64)
 FetchFn = Callable[[torch.Tensor, torch.Tensor],
                    Tuple[torch.Tensor, torch.Tensor]]
 # stamp(x, y, adv_index, k, poison_all) -> (x, y, poisoned_mask)
@@ -63,3 +68,42 @@ def make_image_device_data(data: ImageData, params: cfg.Params,
     return DeviceData(fetch_train, fetch_test, stamp,
                       num_train=len(data.train_labels),
                       num_test=len(data.test_labels), device=device)
+
+
+def make_loan_device_data(data: LoanData, params: cfg.Params,
+                          device: torch.device) -> DeviceData:
+    """LOAN: per-state shards stacked [S, max_n, F]; `slot` (a [C] or
+    per-row tensor broadcast against idx) selects the state."""
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+
+    train_x = dev(stack_ragged(data.train_x), torch.float32)
+    train_y = dev(stack_ragged(data.train_y), torch.int64)
+    test_x = dev(stack_ragged(data.test_x), torch.float32)
+    test_y = dev(stack_ragged(data.test_y), torch.int64)
+    values, masks = triggers.build_feature_trigger_bank(
+        params, data.feature_dict, train_x.shape[-1])
+    values = torch.from_numpy(values).to(device)
+    masks = torch.from_numpy(masks).to(device)
+    swap = int(params["poison_label_swap"])
+
+    def gather(x, y, slot, idx):
+        slot = slot.long()
+        slot = slot.reshape(slot.shape + (1,) * (idx.dim() - slot.dim()))
+        idx = idx.long()
+        return x[slot, idx], y[slot, idx]
+
+    def fetch_train(slot, idx):
+        return gather(train_x, train_y, slot, idx)
+
+    def fetch_test(slot, idx):
+        return gather(test_x, test_y, slot, idx)
+
+    def stamp(x, y, adv_index, k, poison_all=False):
+        return triggers.poison_batch_features(x, y, values, masks, adv_index,
+                                              swap, k, poison_all)
+
+    return DeviceData(fetch_train, fetch_test, stamp,
+                      num_train=sum(len(y) for y in data.train_y),
+                      num_test=sum(len(y) for y in data.test_y),
+                      device=device)

@@ -6,6 +6,10 @@ agent selection and plan building, the stacked-client round on the device
 (train all clients → [faults → screen] → aggregate → local/global
 evaluation batteries), one transfer of the round's results to the host,
 and recording into the same CSV/JSONL files and columns as the JAX package.
+The image workloads (MNIST, CIFAR, Tiny-ImageNet) partition one dataset
+among the participants; LOAN's clients are US-state shards, its poisoned
+rounds first probe the global model's backdoor accuracy for the adaptive
+poison LR, and its dropout masks are drawn per round segment on the CPU.
 The robust dispatch (fault_injection / screen_updates) retries a round whose
 aggregate is non-finite from the captured pre-round state with an escalated
 norm screen, and degrades it when retries run out. The FoolsGold memory and
@@ -29,17 +33,22 @@ import torch
 from dba_mod_tpu_torch import config as cfg
 from dba_mod_tpu_torch import checkpoint as ckpt
 from dba_mod_tpu_torch.data.batching import build_batch_plan, build_eval_plan
-from dba_mod_tpu_torch.data.datasets import load_image_dataset
+from dba_mod_tpu_torch.data.datasets import (load_image_dataset,
+                                             load_loan_dataset)
 from dba_mod_tpu_torch.data.partition import (equal_split_indices,
                                               poison_test_indices,
                                               sample_dirichlet_indices)
 from dba_mod_tpu_torch.fl import faults as flt
-from dba_mod_tpu_torch.fl.device_data import make_image_device_data
+from dba_mod_tpu_torch.fl.device_data import (make_image_device_data,
+                                               make_loan_device_data)
 from dba_mod_tpu_torch.fl.rounds import EvalPlans, RoundEngine
 from dba_mod_tpu_torch.fl.selection import select_agents
 from dba_mod_tpu_torch.fl.state import build_client_tasks
 from dba_mod_tpu_torch.models import ModelVars, build_model
+from dba_mod_tpu_torch.models.loan import (draw_dropout_masks,
+                                           dropout_generator)
 from dba_mod_tpu_torch.ops.aggregation import foolsgold_init
+from dba_mod_tpu_torch.ops.sgd import loan_adaptive_poison_lr
 from dba_mod_tpu_torch.utils.device import pin_float32_math, resolve_device
 from dba_mod_tpu_torch.utils.html import dict_html
 from dba_mod_tpu_torch.utils.recorder import Recorder
@@ -104,6 +113,7 @@ class Experiment:
         # the DP-noise stream (diff_privacy); jax.random and torch draw
         # different numbers from one seed
         self.noise_gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
 
         self._load_data_and_partition(seed)
 
@@ -153,6 +163,12 @@ class Experiment:
         self.last_is_updated = True
         self.last_global_loss = float("inf")  # feeds the best-val checkpoint
         self.best_loss = float("inf")         # helper.py:433, main.py:120
+        # stale_poison_probe (flag-gated deviation, LOAN only): the adaptive
+        # poison-LR probe reads the most recently finalized round's backdoor
+        # accuracy instead of evaluating the current global model
+        # (loan_train.py:67-75), which saves the probe's host sync
+        self.stale_poison_probe = bool(params.get("stale_poison_probe",
+                                                  False))
         self.last_backdoor_acc: Optional[float] = None
         # Per-round step-count bucketing: size the plan to the round's own
         # max client, quantized to _STEP_BUCKET (identical numerics: dropped
@@ -164,6 +180,13 @@ class Experiment:
         params = self.params
         eb = int(params.get("eval_batch_size", 0) or
                  params["test_batch_size"])
+
+        def dev(a):
+            return torch.from_numpy(np.asarray(a)).to(self.device)
+
+        if not params.is_image:
+            self._load_loan(eb, dev)
+            return
         data = self.image_data = load_image_dataset(params)
         self.device_data = make_image_device_data(data, params, self.device)
         if params["sampling_dirichlet"]:
@@ -193,10 +216,6 @@ class Experiment:
         poison = build_eval_plan(
             poison_test_indices(data.test_labels,
                                 int(params["poison_label_swap"])), eb)
-
-        def dev(a):
-            return torch.from_numpy(np.asarray(a)).to(self.device)
-
         self.eval_plans = EvalPlans(
             clean_idx=dev(clean.idx),
             clean_slots=dev(np.zeros_like(clean.idx)),
@@ -204,6 +223,47 @@ class Experiment:
             poison_idx=dev(poison.idx),
             poison_slots=dev(np.zeros_like(poison.idx)),
             poison_mask=dev(poison.mask))
+
+    def _load_loan(self, eb: int, dev) -> None:
+        """LOAN: one client per state shard (slot = the state's index); the
+        benign list is the first `number_of_total_participants` states that
+        are not adversaries (loan_helper.py:134-141)."""
+        params = self.params
+        data = self.loan_data = load_loan_dataset(params)
+        self.device_data = make_loan_device_data(data, params, self.device)
+        state_of = {n: i for i, n in enumerate(data.state_names)}
+        benign = []
+        for j, name in enumerate(data.state_names):
+            if j >= int(params["number_of_total_participants"]):
+                break
+            if name not in params.adversary_list:
+                benign.append(name)
+        self.benign_names = benign
+        if params["is_random_namelist"]:
+            self.participants = benign + params.adversary_list
+        else:
+            self.participants = list(params["participants_namelist"])
+        self.client_indices = {
+            name: list(range(len(data.train_y[state_of[name]])))
+            for name in data.state_names}
+        self.client_slots = state_of
+        self.num_participants = len(data.state_names)
+
+        # the eval plans run over every state's test shard (test.py:13-24),
+        # each row with its state's slot; the plan's padded tail is masked
+        pairs = [(s, i) for s, ys in enumerate(data.test_y)
+                 for i in range(len(ys))]
+        slots = np.array([p[0] for p in pairs], np.int64)
+        rows = np.array([p[1] for p in pairs], np.int64)
+        plan = build_eval_plan(np.arange(len(pairs)), eb)
+        idx = rows[plan.idx.reshape(-1)].reshape(plan.idx.shape)
+        slt = slots[plan.idx.reshape(-1)].reshape(plan.idx.shape)
+        idx, slt, mask = (dev(idx.astype(np.int32)),
+                          dev(slt.astype(np.int32)), dev(plan.mask))
+        # LOAN's poisoned eval stamps every row (no target-class filter)
+        self.eval_plans = EvalPlans(clean_idx=idx, clean_slots=slt,
+                                    clean_mask=mask, poison_idx=idx,
+                                    poison_slots=slt, poison_mask=mask)
 
     # ----------------------------------------------------------------- round
     _STEP_BUCKET = 2       # quantum of the per-round step-count buckets
@@ -251,6 +311,7 @@ class Experiment:
             params, epoch, self.participants, self.benign_names,
             self.select_rng)
         logger.info("Server Epoch:%d choose agents: %s", epoch, agent_names)
+        backdoor_acc = self._poison_probe(epoch, agent_names)
         slots = np.array([self.client_slots[n] for n in agent_names],
                          np.int64)
         # one segment per global epoch in the aggregation interval
@@ -269,7 +330,7 @@ class Experiment:
         num_samples = None
         for ep in seg_epochs:
             tasks_s = build_client_tasks(params, agent_names, ep, slots,
-                                         self.epochs_max)
+                                         self.epochs_max, backdoor_acc)
             plan = build_batch_plan(
                 [self.client_indices[n] for n in agent_names],
                 [int(e) for e in tasks_s.num_epochs],
@@ -281,18 +342,52 @@ class Experiment:
             idx_list.append(plan.idx)
             mask_list.append(plan.mask)
         idx_seq, mask_seq = np.stack(idx_list), np.stack(mask_list)
+        dropout_seq = self._dropout_masks(epoch, idx_seq.shape)
         if self.engine.robust:
             return self._dispatch_robust(epoch, t0, seg_epochs, agent_names,
                                          adv_names, tasks_list, idx_seq,
-                                         mask_seq, mask_list, num_samples)
+                                         mask_seq, mask_list, num_samples,
+                                         dropout_seq)
         new_vars, new_fg, payload, _ = self.engine.round_fn(
             self.global_vars, tasks_list, idx_seq, mask_seq, self.noise_gen,
-            num_samples=num_samples, fg_state=self.fg_state)
+            num_samples=num_samples, fg_state=self.fg_state,
+            dropout_seq=dropout_seq)
         self.global_vars, self.fg_state = new_vars, new_fg
         return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
                              agent_names=agent_names, adv_names=adv_names,
                              tasks_list=tasks_list, mask_list=mask_list,
                              payload=payload)
+
+    def _poison_probe(self, epoch: int, agent_names) -> Optional[float]:
+        """LOAN's adaptive poison-LR probe (loan_train.py:67-75): in a round
+        where a selected adversary poisons, the current global model's
+        backdoor accuracy (one host sync, as in the JAX package), or with
+        stale_poison_probe the last finalized round's. None otherwise."""
+        params = self.params
+        if params.type != cfg.TYPE_LOAN or not self.is_poison_run or not any(
+                params.adversary_slot_of(n) >= 0 and epoch in
+                params.poison_epochs_for(params.adversary_slot_of(n))
+                for n in agent_names):
+            return None
+        if self.stale_poison_probe and self.last_backdoor_acc is not None:
+            acc = self.last_backdoor_acc      # round N-1's battery
+        else:
+            acc = float(self.engine.backdoor_acc(self.global_vars))
+        logger.info("epoch %d: poison probe backdoor acc %.4f -> poison lr "
+                    "%r", epoch, acc, loan_adaptive_poison_lr(
+                        float(params["poison_lr"]), acc,
+                        bool(params["baseline"])))
+        return acc
+
+    def _dropout_masks(self, epoch: int, plan_shape) -> Optional[List]:
+        """A dropout model's keep masks for each segment of the round, drawn
+        on the CPU from a generator keyed by (random_seed, epoch, segment):
+        the same masks on the card and on the CPU. None without dropout."""
+        if not self.model_def.has_dropout:
+            return None
+        return [draw_dropout_masks(dropout_generator(self.seed, epoch, s),
+                                   plan_shape[1:])
+                for s in range(plan_shape[0])]
 
     def _zero_deltas(self, n_clients: int) -> ModelVars:
         """A [C]-stacked all-zero delta tree: the stale lane's replay source
@@ -330,7 +425,7 @@ class Experiment:
 
     def _dispatch_robust(self, epoch, t0, seg_epochs, agent_names, adv_names,
                          tasks_list, idx_seq, mask_seq, mask_list,
-                         num_samples) -> RoundInFlight:
+                         num_samples, dropout_seq=None) -> RoundInFlight:
         """The robust round: run it, then, only when screening is on, check
         that the aggregated model is finite (one host sync) and re-run the
         round from the captured pre-round state with an escalated norm
@@ -349,6 +444,7 @@ class Experiment:
             new_vars, new_fg, payload, deltas_out = self.engine.round_fn(
                 vars_before, tasks_list, idx_seq, mask_seq, self.noise_gen,
                 num_samples=num_samples, fg_state=fg_before,
+                dropout_seq=dropout_seq,
                 **self._robust_round_args(epoch, num_samples, norm_mult))
             if not self.engine.screening:
                 break   # unscreened injection: faults flow through

@@ -334,11 +334,17 @@ class RoundEngine:
 
     # ------------------------------------------------------------- train
     def train_fn(self, global_vars: ModelVars, tasks_seq: List[ClientTask],
-                 idx_seq: np.ndarray, mask_seq: np.ndarray) -> TrainResult:
+                 idx_seq: np.ndarray, mask_seq: np.ndarray,
+                 dropout_seq: Optional[List[tuple]] = None) -> TrainResult:
         """tasks_seq: one host ClientTask per segment; idx/mask [I, C, E, S,
-        B] numpy plans."""
+        B] numpy plans; dropout_seq: a dropout model's keep masks, one tuple
+        of [C, E, S, B, width] bool tensors per segment (moved to the
+        device once per segment)."""
         dev = self.device
         n_seg, C = idx_seq.shape[0], idx_seq.shape[1]
+        if self.model_def.has_dropout and dropout_seq is None:
+            raise ValueError(f"{self.model_def.name}: train_fn needs the "
+                             f"round's dropout masks")
         start = ModelVars(_stack(global_vars.params, C),
                           _stack(global_vars.batch_stats, C))
         benign_mom = {k: torch.zeros_like(v) for k, v in start.params.items()}
@@ -350,8 +356,10 @@ class RoundEngine:
             idx = torch.from_numpy(idx_seq[s]).to(dev)
             mask = torch.from_numpy(mask_seq[s]).to(dev)
             active = mask_seq[s].any(axis=(0, 3))         # [E, S] host-side
+            drop = (tuple(d.to(dev) for d in dropout_seq[s])
+                    if self.model_def.has_dropout else ())
             res = self.client_step(start, benign_mom, task, idx, mask,
-                                   active)
+                                   active, drop)
             start = res.end_vars
             benign_mom = res.benign_mom
             fg_total = {k: v + res.fg_grads[k] for k, v in fg_total.items()}
@@ -472,6 +480,7 @@ class RoundEngine:
                  idx_seq: np.ndarray, mask_seq: np.ndarray,
                  gen: Optional[torch.Generator] = None, *,
                  num_samples: np.ndarray,
+                 dropout_seq: Optional[List[tuple]] = None,
                  fg_state: Optional[agg.FoolsGoldState] = None,
                  fault_plan: Optional[flt.FaultPlan] = None,
                  prev_deltas: Optional[ModelVars] = None,
@@ -483,14 +492,16 @@ class RoundEngine:
         is_updated, seg_locals, robust_stats, forensic_stats).
 
         `num_samples` [C]: each client's sample count (RFA's alphas; zero
-        marks a lane that is not counted). `norm_mult` switches the robust
+        marks a lane that is not counted). `dropout_seq`: a dropout model's
+        keep masks per segment (train_fn). `norm_mult` switches the robust
         path on: the screen's norm multiplier, <= 0 for the finite screen
         only. With the fault layer on, `fault_plan` is the round's plan and
         `prev_deltas` the stale lane's replay source; deltas_out is then
         what the server received, for the next round's replay (None when
         the stale lane is off)."""
         dev = self.device
-        train = self.train_fn(global_vars, tasks_seq, idx_seq, mask_seq)
+        train = self.train_fn(global_vars, tasks_seq, idx_seq, mask_seq,
+                              dropout_seq)
         deltas, fg_grads, fg_feature = (train.deltas, train.fg_grads,
                                         train.fg_feature)
         ns = torch.from_numpy(np.asarray(num_samples, np.float32)).to(dev)

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from dba_mod_tpu_torch import config as cfg
-from dba_mod_tpu_torch.ops.sgd import poison_multistep_lr_array
+from dba_mod_tpu_torch.ops.sgd import (loan_adaptive_poison_lr,
+                                       poison_multistep_lr_array)
 
 
 class ClientTask(NamedTuple):
@@ -83,21 +84,29 @@ class RoundHyper:
 
 
 def build_client_tasks(params: cfg.Params, agent_names: list, epoch: int,
-                       slots: np.ndarray, num_epochs_max: int) -> ClientTask:
+                       slots: np.ndarray, num_epochs_max: int,
+                       backdoor_acc: Optional[float] = None) -> ClientTask:
     """Host-side construction of the stacked ClientTask for one round:
     adversarial index resolution (image_train.py:37-48), poison-epoch
-    scheduling (:56), poison LR schedule (:59-68), scaling/baseline flags
-    (:148, :166)."""
+    scheduling (:56), poison LR schedule (:59-68), the LOAN adaptive poison
+    LR from the current global backdoor accuracy (loan_train.py:67-75),
+    scaling/baseline flags (:148, :166). LOAN clients are keyed by their
+    state's slot and step their schedule before the epoch's batches."""
     C = len(agent_names)
+    is_loan = params.type == cfg.TYPE_LOAN
     is_poison_run = bool(params["is_poison"])
     baseline = bool(params["baseline"])
     lr = float(params["lr"])
     poison_lr = float(params["poison_lr"])
+    if is_loan and backdoor_acc is not None:
+        poison_lr = loan_adaptive_poison_lr(poison_lr, backdoor_acc,
+                                            baseline)
 
     E = num_epochs_max
     internal_epochs = int(params["internal_epochs"])
     internal_poison = int(params["internal_poison_epochs"])
-    step_lr_mult = (poison_multistep_lr_array(internal_poison)
+    step_lr_mult = (poison_multistep_lr_array(internal_poison,
+                                              step_before=is_loan)
                     if bool(params["poison_step_lr"])
                     else np.ones((internal_poison,), np.float32))
 
@@ -111,7 +120,7 @@ def build_client_tasks(params: cfg.Params, agent_names: list, epoch: int,
     pids = np.zeros((C,), np.int32)
 
     for c, name in enumerate(agent_names):
-        pids[c] = int(name)
+        pids[c] = int(slots[c]) if is_loan else int(name)
         slot_of = params.adversary_slot_of(name)
         adv_slot[c] = slot_of
         poisoning_now = (is_poison_run and slot_of >= 0 and

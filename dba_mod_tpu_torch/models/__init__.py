@@ -7,18 +7,19 @@ axis. ``ModelDef`` keeps the JAX package's metadata:
 - ``similarity_path``: the parameter standing in for the reference
   FoolsGold's "second-to-last named parameter" (helper.py:537) — the final
   linear layer's weight, stored here torch-style as [out, in];
-- ``has_batch_stats``: whether the model carries BN running stats;
+- ``has_batch_stats`` / ``has_dropout``: whether the model carries BN
+  running stats / takes dropout keep masks in train mode;
 - ``num_classes``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from dba_mod_tpu_torch import config as cfg
-from dba_mod_tpu_torch.models import mnist, resnet
+from dba_mod_tpu_torch.models import loan, mnist, resnet
 
 Tree = Dict[str, torch.Tensor]
 
@@ -34,13 +35,14 @@ class ModelVars(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     name: str
-    input_shape: Tuple[int, ...]   # one sample, NHWC
+    input_shape: Tuple[int, ...]   # one sample, NHWC / features
     num_classes: int
     similarity_path: Tuple[str, ...]
     has_batch_stats: bool
     _init: Callable[[torch.Generator], ModelVars]
-    _apply: Callable[[Tree, Tree, torch.Tensor, bool], Tuple[torch.Tensor,
-                                                             Tree]]
+    # (params, stats, x, train, dropout) -> (logits, new_stats)
+    _apply: Callable[..., Tuple[torch.Tensor, Tree]]
+    has_dropout: bool = False
 
     def init_vars(self, seed: int, device: torch.device) -> ModelVars:
         """torch-default init from a CPU generator seeded with `seed`
@@ -50,27 +52,30 @@ class ModelDef:
         return ModelVars({k: v.to(device) for k, v in mv.params.items()},
                          {k: v.to(device) for k, v in mv.batch_stats.items()})
 
-    def apply(self, model_vars: ModelVars, x: torch.Tensor, train: bool
+    def apply(self, model_vars: ModelVars, x: torch.Tensor, train: bool,
+              dropout: Optional[Sequence[torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Tree]:
-        """Forward pass on NHWC float input. Returns (logits,
-        new_batch_stats); eval mode returns the stats unchanged."""
+        """Forward pass on NHWC float input (features for LOAN). Returns
+        (logits, new_batch_stats); eval mode returns the stats unchanged.
+        A dropout model needs its keep masks in train mode."""
+        if self.has_dropout and train and not dropout:
+            raise ValueError(f"{self.name}: dropout masks are required in "
+                             f"train mode")
         return self._apply(model_vars.params, model_vars.batch_stats, x,
-                           train)
+                           train, dropout)
 
     def similarity_param(self, params: Tree) -> torch.Tensor:
         return params[self.similarity_path[0]]
 
 
-def _mnist_init(gen):
-    return ModelVars(mnist.init_params(gen), {})
+def _resnet(spec: resnet.ResNetSpec, num_classes: int):
+    def init(gen):
+        return ModelVars(*resnet.init_vars(gen, num_classes, spec))
 
+    def apply(params, stats, x, train, dropout):
+        return resnet.apply(params, stats, x, train, spec)
 
-def _mnist_apply(params, stats, x, train):
-    return mnist.apply(params, x)
-
-
-def _cifar_init(gen):
-    return ModelVars(*resnet.init_vars(gen, 10))
+    return init, apply
 
 
 def build_model(params: cfg.Params) -> ModelDef:
@@ -78,11 +83,28 @@ def build_model(params: cfg.Params) -> ModelDef:
     if t == cfg.TYPE_MNIST:
         return ModelDef(name="MnistNet", input_shape=(28, 28, 1),
                         num_classes=10, similarity_path=("fc2.weight",),
-                        has_batch_stats=False, _init=_mnist_init,
-                        _apply=_mnist_apply)
+                        has_batch_stats=False,
+                        _init=lambda gen: ModelVars(mnist.init_params(gen),
+                                                    {}),
+                        _apply=lambda p, s, x, train, d: mnist.apply(p, x))
     if t == cfg.TYPE_CIFAR:
+        init, apply = _resnet(resnet.CIFAR18, 10)
         return ModelDef(name="CifarResNet18", input_shape=(32, 32, 3),
                         num_classes=10, similarity_path=("fc.weight",),
-                        has_batch_stats=True, _init=_cifar_init,
-                        _apply=resnet.apply)
-    raise NotImplementedError(f"workload {t!r} is not ported (ROADMAP A11)")
+                        has_batch_stats=True, _init=init, _apply=apply)
+    if t == cfg.TYPE_TINYIMAGENET:
+        init, apply = _resnet(resnet.TINY18, 200)
+        return ModelDef(name="TinyResNet18", input_shape=(64, 64, 3),
+                        num_classes=200, similarity_path=("fc.weight",),
+                        has_batch_stats=True, _init=init, _apply=apply)
+    if t == cfg.TYPE_LOAN:
+        return ModelDef(name="LoanNet", input_shape=(loan.IN_DIM,),
+                        num_classes=loan.NUM_CLASSES,
+                        similarity_path=("fc3.weight",),
+                        has_batch_stats=False,
+                        _init=lambda gen: ModelVars(loan.init_params(gen),
+                                                    {}),
+                        _apply=lambda p, s, x, train, d: loan.apply(
+                            p, x, train, d),
+                        has_dropout=True)
+    raise ValueError(f"unknown workload type {t!r}")

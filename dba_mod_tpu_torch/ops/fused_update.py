@@ -107,9 +107,10 @@ def _load():
 
 def _chunks(entries) -> list:
     """Split entries [(kind, tensors)] into runs that fit one leaf table:
-    at most _MAX_LEAVES leaves and _MAX_PTRS pointers each. The CIFAR
-    ResNet-18 state fits one table: 62 sgd + 40 sel leaves (266 pointers),
-    or 62 sgd_acc + 40 sel leaves (328 pointers) with FoolsGold on."""
+    at most _MAX_LEAVES leaves and _MAX_PTRS pointers each. The CIFAR and
+    Tiny-ImageNet ResNet-18 states fit one table: 62 sgd + 40 sel leaves
+    (266 pointers), or 62 sgd_acc + 40 sel leaves (328 pointers) with
+    FoolsGold on; LoanNet's is 6 sgd leaves."""
     chunks, cur, nptr = [], [], 0
     for e in entries:
         if cur and (len(cur) == _MAX_LEAVES or nptr + len(e[1]) > _MAX_PTRS):
@@ -122,6 +123,31 @@ def _chunks(entries) -> list:
     return chunks
 
 
+_INT_MAX = 2 ** 31 - 1
+
+
+def _layout(sizes, C) -> list:
+    """Per-client element counts of one table's leaves -> the tiles'
+    prefix sums (the kernel's tile_start, one launch of tile_start[-1]
+    blocks). The kernel indexes with 32-bit ints: a leaf's per-client count
+    plus one tile, and the grid's block count, must fit; client * n is
+    taken in size_t. At the full Tiny-ImageNet ResNet-18 (2,359,296
+    elements per client in its largest leaf, about 28.5 k tiles at C = 10)
+    that leaves three orders of magnitude of headroom."""
+    starts, tiles = [], 0
+    for n in sizes:
+        if n + _TILE > _INT_MAX:
+            raise ValueError(f"fused_step_update: a leaf of {n} elements "
+                             f"per client overflows the kernel's int32 "
+                             f"indices")
+        starts.append(tiles)
+        tiles += C * -(-n // _TILE)
+    if tiles > _INT_MAX:
+        raise ValueError(f"fused_step_update: {tiles} tiles exceed one "
+                         f"launch's grid")
+    return starts + [tiles]
+
+
 def _tables(entries, C) -> list:
     """entries: [(kind, tensors)] of [C, ...] tensors, in the order the
     kernel reads them (sgd: w, g, m; sgd_acc: w, g, m, fg; sel: bn_old,
@@ -130,18 +156,18 @@ def _tables(entries, C) -> list:
     tables = []
     for chunk in _chunks(entries):
         t = _Table()
-        tiles = nptr = 0
-        for i, (kind, ts) in enumerate(chunk):
-            n = ts[0].numel() // C
+        sizes = [ts[0].numel() // C for _, ts in chunk]
+        starts = _layout(sizes, C)
+        nptr = 0
+        for i, ((kind, ts), n) in enumerate(zip(chunk, sizes)):
             t.first[i] = nptr
             for x in ts:
                 t.ptr[nptr] = x.data_ptr()
                 nptr += 1
             t.n[i] = n
             t.kind[i] = _KIND[kind]
-            t.tile_start[i] = tiles
-            tiles += C * -(-n // _TILE)
-        t.tile_start[len(chunk)] = tiles
+            t.tile_start[i] = starts[i]
+        t.tile_start[len(chunk)] = starts[-1]
         t.num_leaves = len(chunk)
         tables.append(t)
     return tables

@@ -6,7 +6,8 @@ weight_decay)`` created fresh each round (image_train.py:33-35, :63-65), so
 momentum buffers start at zero within a round; the update itself is the
 fused kernel (ops/fused_update.py), and ``sgd_step`` is FoolsGold's
 server step. The schedule keeps torch's float-milestone quirk
-(image_train.py:66-68).
+(image_train.py:66-68); the LOAN schedule steps before the epoch's batches
+and its poison LR adapts to the backdoor accuracy.
 """
 from __future__ import annotations
 
@@ -70,3 +71,20 @@ def poison_multistep_lr_array(internal_poison_epochs: int,
     (image_train.py:66-68, loan_train.py:83-85)."""
     e = internal_poison_epochs
     return multistep_lr_array(e, [0.2 * e, 0.8 * e], gamma, step_before)
+
+
+def loan_adaptive_poison_lr(base_poison_lr: float, backdoor_acc: float,
+                            baseline: bool) -> float:
+    """LOAN poison-LR decay by the global model's current backdoor accuracy
+    (loan_train.py:71-75): acc > 20 → lr/5, additionally acc > 60 → lr/10
+    (cumulative /50); `baseline` keeps the base lr. float32 arithmetic, as
+    the JAX package computes it."""
+    lr = np.float32(base_poison_lr)
+    if baseline:
+        return float(lr)
+    acc = np.float32(backdoor_acc)
+    if acc > 20.0:
+        lr = lr / np.float32(5.0)
+    if acc > 60.0:
+        lr = lr / np.float32(10.0)
+    return float(lr)

@@ -192,7 +192,7 @@ def test_fedavg_matches_jax():
 
 @pytest.mark.parametrize("override,item", [
     ({"fault_injection": True, "fault_host_loss_prob": 0.1}, "A18"),
-    ({"type": "loan"}, "A11"),
+    ({"graceful_shutdown": True}, "A15"),
     ({"compute_dtype": "bfloat16"}, "A20"),
     ({"mode": "async"}, "A16"),
     ({"num_devices": 4}, "A18"),
