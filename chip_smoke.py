@@ -48,7 +48,28 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    each round's probe chose, one fused launch per step; then one poisoned
    LOAN round on the card against the same round on the CPU, from the same
    weights and the same CPU-drawn dropout masks: global max abs diff at
-   most 5e-6.
+   most 5e-6;
+8. bf16 compute at full width: phase 4's CIFAR config with
+   ``compute_dtype: bfloat16``, resumed from phase 4's pretrain, two
+   poisoned FedAvg rounds through the CLI, in a fresh process — one fused
+   launch per local step (its leaves stay float32), every round recorded,
+   the first round's clean accuracy finite; round_time, train ms a step,
+   battery seconds and peak memory beside phase 4's float32 numbers. Then one poisoned MNIST bf16
+   round on the card against the same round on the CPU: accuracies within
+   1 point, the global-model distance printed;
+9. the health sentinel, defense forensics and crash/resume at full width: a
+   CIFAR FoolsGold config with ``forensics``, ``model_health_check`` (band
+   3, armed after one merge), ``graceful_shutdown``, ``keep_last_n: 2``,
+   no local battery and three poisoned rounds, under deterministic
+   kernels, run once
+   uninterrupted and once through dba_mod_tpu_torch.crash_smoke's launcher
+   (SIGTERM once round 1 commits → exit 75 → ``--resume auto``). The two
+   final models are bitwise equal, their round_result.csv (less the clock
+   columns), forensics.jsonl and client_forensics.csv rows equal, every
+   snapshot left verifies, ``main report`` writes the HTML audit, every
+   round has one forensic row per client with the adversaries flagged, and
+   each run's fused launches equal its local steps; the sentinel's
+   decision per round is printed.
 
 Phase 3 also runs (as 3b) at the Tiny-ImageNet size (FoolsGold off and on)
 and at the LOAN size, so the kernels line has five rows.
@@ -282,11 +303,11 @@ def time_fused_update(st, lr, mu, wd, max_err, fg_on, C, label="") -> dict:
 
 
 # ---------------------------------------------------------------- phase 4
-def expected_launches(train_csv: Path, batch: int) -> int:
-    """Local steps the recorded rounds ran: in each (round, internal epoch)
-    the stacked step loop runs the steps where ANY client has a sample,
-    i.e. max over clients of ceil(samples / batch). A client with no
-    samples is recorded with total 1 and loss 0."""
+def steps_by_epoch(train_csv: Path, batch: int) -> dict:
+    """Local steps each recorded round ran, by epoch: in each (round,
+    internal epoch) the stacked step loop runs the steps where ANY client
+    has a sample, i.e. max over clients of ceil(samples / batch). A client
+    with no samples is recorded with total 1 and loss 0."""
     steps: dict = {}
     with open(train_csv, newline="") as f:
         for row in csv.DictReader(f):
@@ -295,7 +316,15 @@ def expected_launches(train_csv: Path, batch: int) -> int:
                 n = 0
             key = (int(row["epoch"]), int(row["internal_epoch"]))
             steps[key] = max(steps.get(key, 0), -(-n // batch))
-    return sum(steps.values())
+    out: dict = {}
+    for (epoch, _), n in steps.items():
+        out[epoch] = out.get(epoch, 0) + n
+    return out
+
+
+def expected_launches(train_csv: Path, batch: int) -> int:
+    """Local steps the recorded rounds ran (see steps_by_epoch)."""
+    return sum(steps_by_epoch(train_csv, batch).values())
 
 
 def _watch_aggregate(record: list):
@@ -319,6 +348,8 @@ def _watch_aggregate(record: list):
 
 
 def run_main_path(tmp: Path) -> dict:
+    """Phase 4 (see the module docstring); also the float32 phase seconds
+    and peak memory that phase 8 compares bf16 against."""
     import torch
     import yaml
     from dba_mod_tpu_torch import checkpoint as ckpt
@@ -341,8 +372,11 @@ def run_main_path(tmp: Path) -> dict:
         raise AssertionError("pretrain failed")
     pretrain_s = time.perf_counter() - t0
     aggs: list = []
+    phases: dict = {}
     undo = _watch_aggregate(aggs)
+    undo_phases = _watch_phases(phases)
     fu.fused_step_update.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         if cli_main(["train", "--params", str(cfg_path), "--resume",
@@ -350,8 +384,10 @@ def run_main_path(tmp: Path) -> dict:
             raise AssertionError("train failed")
         torch.cuda.synchronize()
     finally:
+        undo_phases()
         undo()
     train_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
     launches = fu.fused_step_update.launches
 
     runs = list((tmp / "runs").iterdir())
@@ -364,7 +400,9 @@ def run_main_path(tmp: Path) -> dict:
                  "params.yaml", "params.html"):
         if not (folder / name).is_file():
             raise AssertionError(f"recorder file missing: {name}")
-    want = expected_launches(folder / "train_result.csv", int(raw["batch_size"]))
+    by_epoch = steps_by_epoch(folder / "train_result.csv",
+                              int(raw["batch_size"]))
+    want = sum(by_epoch.values())
     if launches != want or launches == 0:
         raise AssertionError(f"fused kernel launched {launches} times, the "
                              f"rounds ran {want} local steps")
@@ -410,9 +448,12 @@ def run_main_path(tmp: Path) -> dict:
         f"backdoor={rows[-1]['backdoor_acc']:.2f}; global eval loss "
         f"{[r['global_loss'] for r in rows]}, min BN running var "
         f"{min_var}")
-    return {"launches": launches, "round_s": round_s,
+    return {"launches": launches, "steps": want,
+            "round_steps": [by_epoch[ep] for ep in (2, 3)], "round_s": round_s,
             "aggregate_s": [a["seconds"] for a in aggs],
-            "pretrain_s": pretrain_s, "train_s": train_s,
+            "phase_s": {k: [round(x, 4) for x in v]
+                        for k, v in phases.items()},
+            "peak_mb": peak_mb, "pretrain_s": pretrain_s, "train_s": train_s,
             "global_acc": [r["global_acc"] for r in rows],
             "global_loss": [r["global_loss"] if math.isfinite(
                 float(r["global_loss"])) else str(r["global_loss"])
@@ -590,10 +631,12 @@ def _watch_phases(record: dict):
 
 
 def _train_rounds(cfg_path: Path, resume: str, epochs: int, run_dir: Path,
-                  batch: int, want_epochs: list, what: str) -> dict:
+                  batch: int, want_epochs: list, what: str,
+                  finite_rounds: int | None = None) -> dict:
     """Resume `resume` and train through `epochs` via the CLI; check one
     fused launch per local step, the recorded epochs, that every round
-    poisoned and that accuracies are finite. Returns the rounds' numbers:
+    poisoned and that accuracies are finite (in the first `finite_rounds`
+    rounds' clean accuracy only, when given). Returns the rounds' numbers:
     round_time, the engine's phase seconds and the peak device memory."""
     import torch
     from dba_mod_tpu_torch.main import main as cli_main
@@ -614,7 +657,8 @@ def _train_rounds(cfg_path: Path, resume: str, epochs: int, run_dir: Path,
     train_s = time.perf_counter() - t0
     launches = fu.fused_step_update.launches
     (folder,) = list(run_dir.iterdir())
-    steps = expected_launches(folder / "train_result.csv", batch)
+    by_epoch = steps_by_epoch(folder / "train_result.csv", batch)
+    steps = sum(by_epoch.values())
     if launches != steps or launches == 0:
         raise AssertionError(f"{what}: fused kernel launched {launches} "
                              f"times, the rounds ran {steps} local steps")
@@ -623,15 +667,18 @@ def _train_rounds(cfg_path: Path, resume: str, epochs: int, run_dir: Path,
     if [r["epoch"] for r in rows] != want_epochs:
         raise AssertionError(f"{what}: recorded epochs "
                              f"{[r['epoch'] for r in rows]}")
-    for r in rows:
+    for i, r in enumerate(rows):
         if not r["adversaries"]:
             raise AssertionError(f"{what}: round {r['epoch']} did not poison")
-        for k in ("global_acc", "backdoor_acc"):
+        keys = (("global_acc", "backdoor_acc") if finite_rounds is None
+                else ("global_acc",) if i < finite_rounds else ())
+        for k in keys:
             if not math.isfinite(float(r[k])):
                 raise AssertionError(f"{what}: non-finite {k} in {r}")
     with open(folder / "round_result.csv", newline="") as f:
         round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
     return {"folder": folder, "launches": launches, "steps": steps,
+            "round_steps": [by_epoch[ep] for ep in want_epochs],
             "train_s": train_s, "round_s": round_s,
             "phase_s": {k: [round(x, 4) for x in v]
                         for k, v in phases.items()},
@@ -873,6 +920,256 @@ def check_fault_round(tmp: Path) -> dict:
                               "degraded", "global_acc")}
 
 
+# ---------------------------------------------------------------- phase 8
+def _per_step(r: dict) -> dict:
+    """Train ms a step and battery seconds of each round, and peak MB, of a
+    run whose phases _watch_phases recorded."""
+    ph = r["phase_s"]
+    return {"train_ms_per_step": [round(1e3 * t / n, 2) for t, n in
+                                  zip(ph["train_fn"], r["round_steps"])],
+            "battery_s": [round(a + b, 4) for a, b in
+                          zip(ph["local_evals"], ph["global_evals"])],
+            "round_s": r["round_s"], "peak_mb": round(r["peak_mb"], 1)}
+
+
+def bf16_rounds(tmp: Path) -> int:
+    """Phase 8's two CIFAR bf16 rounds, in the fresh process run_bf16
+    starts; prints their numbers as one JSON line."""
+    import yaml
+    raw = dict(yaml.safe_load((tmp / "cifar_smoke.yaml").read_text()),
+               compute_dtype="bfloat16", run_dir=str(tmp / "runs_bf16"))
+    cfg_path = tmp / "cifar_bf16.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    r = _train_rounds(cfg_path, "cifar_pretrain/smoke", 3,
+                      tmp / "runs_bf16", int(raw["batch_size"]), [2, 3],
+                      "CIFAR bf16", finite_rounds=1)
+    del r["folder"]
+    print(json.dumps(r), flush=True)
+    return 0
+
+
+def run_bf16(tmp: Path, f32: dict) -> dict:
+    """Phase 8: two poisoned full-width CIFAR FedAvg rounds in bf16 from
+    phase 4's pretrain, beside phase 4's float32 numbers; then one
+    poisoned MNIST bf16 round card vs CPU. The bf16 rounds run in a fresh
+    process: their step is partly host-bound (PERF.md §5), and a
+    host-bound step slows as a process accumulates state, where phase 4's
+    device-bound float32 step does not."""
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                          "bf16-rounds", str(tmp)], capture_output=True,
+                         text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"bf16 rounds failed:\n{out.stdout[-4000:]}"
+                             f"\n{out.stderr[-4000:]}")
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    bf16, fp32 = _per_step(r), _per_step(f32)
+    log(f"phase 8: CIFAR bf16, 2 poisoned full-width rounds: round_time "
+        f"{bf16['round_s']} (float32 {fp32['round_s']}); train "
+        f"{bf16['train_ms_per_step']} ms a step (float32 "
+        f"{fp32['train_ms_per_step']}; the fresh process's first round "
+        f"also pays cuDNN's first use of each bf16 shape); local + global "
+        f"battery "
+        f"{bf16['battery_s']} s (float32 {fp32['battery_s']}); peak "
+        f"{bf16['peak_mb']:.0f} MB (float32 {fp32['peak_mb']:.0f}); "
+        f"{r['launches']} fused launches = {r['steps']} local steps; clean "
+        f"acc {r['global_acc']} (float32 {f32['global_acc']}), backdoor "
+        f"{r['backdoor_acc']} (float32 {f32['backdoor_acc']}), global loss "
+        f"{r['global_loss']}")
+    outs = {}
+    for name in ("cuda", "cpu"):
+        p = Params.from_yaml(REPO / "configs" / "smoke_params.yaml")
+        p.raw.update(run_dir=str(tmp / f"bf16_small_{name}"),
+                     compute_dtype="bfloat16")
+        exp = Experiment(p, save_results=False, device=name)
+        res = exp.run_round(3)       # adversary 0 poisons from round 3
+        outs[name] = (res, {k: v.cpu() for k, v in
+                            exp.global_vars.params.items()})
+    diff = max(float((outs["cuda"][1][k] - outs["cpu"][1][k]).abs().max())
+               for k in outs["cpu"][1])
+    gaps = {k: abs(outs["cuda"][0][k] - outs["cpu"][0][k])
+            for k in ("global_acc", "backdoor_acc")}
+    if not all(g <= 1.0 for g in gaps.values()):
+        raise AssertionError(f"card vs CPU MNIST bf16 round: accuracy gaps "
+                             f"{gaps}")
+    log(f"phase 8: MNIST bf16 round card vs CPU: accuracy gaps {gaps}, "
+        f"global-model max abs diff {diff:.3g}")
+    return {"cifar": dict(bf16, launches=r["launches"], steps=r["steps"],
+                          global_acc=r["global_acc"],
+                          backdoor_acc=r["backdoor_acc"],
+                          global_loss=r["global_loss"]),
+            "cifar_float32": fp32,
+            "mnist_card_vs_cpu": {"acc_gaps": gaps,
+                                  "global_max_abs_diff": diff}}
+
+
+# ---------------------------------------------------------------- phase 9
+def _launches_logged(log_file: Path) -> list:
+    """The fused-launch counts each `main train` process logged."""
+    return [int(line.rsplit(":", 1)[1]) for line in
+            log_file.read_text().splitlines()
+            if "fused update kernel launches:" in line]
+
+
+def _health_lines(log_file: Path) -> list:
+    return [line.split("epoch ", 1)[1] for line in
+            log_file.read_text().splitlines() if ": health check " in line]
+
+
+def _save_seconds(log_file: Path) -> list:
+    """(snapshots, seconds) of each round's save_model, from its log."""
+    out = []
+    for line in log_file.read_text().splitlines():
+        if " snapshot(s) in " in line:
+            n, rest = line.split(": saved ", 1)[1].split(" snapshot(s) in ")
+            out.append((int(n), float(rest.split("s:", 1)[0])))
+    return out
+
+
+def _round_rows(folder: Path) -> list:
+    """round_result.csv less its clock columns."""
+    with open(folder / "round_result.csv", newline="") as f:
+        return [{k: v for k, v in row.items() if not k.endswith("time")}
+                for row in csv.DictReader(f)]
+
+
+def run_crash_resume(tmp: Path) -> dict:
+    """Phase 9 (see the module docstring)."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch import crash_smoke
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.models import build_model
+
+    base = yaml.safe_load((tmp / "cifar_smoke.yaml").read_text())
+    # no local battery: phases 4-8 run it, and it is half a CIFAR round
+    base.update(aggregation_methods="foolsgold", local_eval=False,
+                forensics=True,
+                model_health_check=True, health_norm_band=3.0,
+                health_warmup_merges=1, graceful_shutdown=True,
+                keep_last_n=2, save_model=True, save_on_epochs=[2, 3, 4],
+                resumed_model=True,
+                resumed_model_name="cifar_pretrain/smoke",
+                **{"0_poison_epochs": [2, 4], "1_poison_epochs": [3]})
+    args = ["--epochs", "4", "--deterministic"]
+    runs = {}
+    for name in ("straight", "resumed"):
+        raw = dict(base, run_dir=str(tmp / f"runs_crash_{name}"))
+        cfg_path = tmp / f"cifar_crash_{name}.yaml"
+        cfg_path.write_text(yaml.safe_dump(raw))
+        t0 = time.perf_counter()
+        if name == "straight":
+            run_dir = Path(raw["run_dir"])
+            run_dir.mkdir()
+            log_file = tmp / f"runs_crash_{name}.crash_smoke.log"
+            proc = crash_smoke.launch(cfg_path, "cuda", args, log_file)
+            try:
+                rc = proc.wait(timeout=900)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise
+            if rc != 0:
+                raise AssertionError(f"uninterrupted run exited {rc}:\n"
+                                     + log_file.read_text()[-4000:])
+            (folder,) = crash_smoke.run_folders(run_dir, base["type"])
+            info = {}
+        else:
+            info = crash_smoke.interrupted_run(cfg_path, "cuda", 1, args,
+                                               timeout=900)
+            folder = info.pop("folder")
+            log_file = tmp / f"runs_crash_{name}.crash_smoke.log"
+        runs[name] = dict(info, folder=folder, log=log_file,
+                          seconds=time.perf_counter() - t0)
+
+    a, b = runs["straight"], runs["resumed"]
+    like = build_model(Params.from_dict(base)).init_vars(
+        0, torch.device("cpu"))
+    ga, ea, _ = ckpt.load_checkpoint(a["folder"] / "model_last.pt.tar", like)
+    gb, eb, _ = ckpt.load_checkpoint(b["folder"] / "model_last.pt.tar", like)
+    unequal = [k for k in list(ga.params) + list(ga.batch_stats)
+               if not torch.equal({**ga.params, **ga.batch_stats}[k],
+                                  {**gb.params, **gb.batch_stats}[k])]
+    if ea != eb or ea != 4 or unequal:
+        raise AssertionError(f"resumed run's model differs from the "
+                             f"uninterrupted one (epochs {ea}/{eb}): "
+                             f"{unequal[:5]}")
+    if _round_rows(a["folder"]) != _round_rows(b["folder"]):
+        raise AssertionError("round_result.csv rows differ")
+    for name in ("forensics.jsonl", "client_forensics.csv"):
+        if (a["folder"] / name).read_bytes() != \
+                (b["folder"] / name).read_bytes():
+            raise AssertionError(f"{name} differs")
+    snaps = {}
+    for run in (a, b):
+        for p in sorted(run["folder"].iterdir()):
+            if p.is_dir():
+                ok, why = ckpt.verify_checkpoint(p)
+                if not ok:
+                    raise AssertionError(f"{p} not verified: {why}")
+                snaps.setdefault(p.name, 0)
+                snaps[p.name] += 1
+    if "model_last.pt.tar.epoch_2" in snaps:
+        raise AssertionError(f"keep_last_n: 2 kept {sorted(snaps)}")
+    recs = [json.loads(l) for l in (a["folder"] / "forensics.jsonl")
+            .read_text().splitlines() if l.strip()]
+    with open(a["folder"] / "client_forensics.csv", newline="") as f:
+        crows = list(csv.DictReader(f))
+    C = int(base["no_models"])
+    adv = {str(x) for x in base["adversary_list"]}
+    for r in recs:
+        mine = [row for row in crows if int(row["epoch"]) == r["epoch"]]
+        flagged = {row["name"] for row in mine if row["adversary"] == "1"}
+        if (len(r["clients"]) != C or len(mine) != C or not r["adversaries"]
+                or flagged != set(r["adversaries"]) or not flagged <= adv):
+            raise AssertionError(f"forensic round {r['epoch']}: {r}")
+    if cli_main(["report", "--run", str(a["folder"])]) != 0:
+        raise AssertionError("report failed")
+    html = a["folder"] / "forensics_report.html"
+    if html.stat().st_size == 0:
+        raise AssertionError("empty forensics report")
+    launches = {}
+    for name, run in runs.items():
+        steps = expected_launches(run["folder"] / "train_result.csv",
+                                  int(base["batch_size"]))
+        got = _launches_logged(run["log"])
+        if sum(got) != steps or steps == 0:
+            raise AssertionError(f"{name}: fused launches {got}, local "
+                                 f"steps {steps}")
+        launches[name] = {"per_process": got, "steps": steps}
+    aux = ckpt.manifest_path(a["folder"] / "model_last.pt.tar")
+    sidecar = a["folder"] / ("model_last.pt.tar" + ckpt.AUX_SUFFIX)
+    state = a["folder"] / "model_last.pt.tar" / ckpt.STATE_FILE
+    with open(a["folder"] / "round_result.csv", newline="") as f:
+        round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
+    decisions = _health_lines(a["log"])
+    log(f"phase 9: CIFAR FoolsGold with forensics + sentinel, 3 poisoned "
+        f"rounds: uninterrupted {a['seconds']:.1f}s (round_time {round_s}); "
+        f"interrupted: SIGTERM after {b['signalled_after_rounds']} "
+        f"committed round(s), exit 75 with epochs {b['stopped_epochs']} "
+        f"recorded ({b['first_run_s']:.1f}s), --resume auto to "
+        f"{b['epochs']} ({b['resume_run_s']:.1f}s); final models bitwise "
+        f"equal, round_result/forensics rows equal; snapshots verified "
+        f"{snaps}; fused launches {launches}; sentinel per round "
+        f"{decisions}; resumed run {_health_lines(b['log'])}; sidecar "
+        f"{sidecar.stat().st_size} B beside a {state.stat().st_size} B "
+        f"model, manifest {aux.stat().st_size} B; save_model (snapshots, "
+        f"s) {_save_seconds(a['log'])}; report {html.stat().st_size} B")
+    return {"round_s": round_s, "straight_s": a["seconds"],
+            "interrupted": {k: b[k] for k in (
+                "signalled_after_rounds", "stopped_epochs", "epochs",
+                "first_run_s", "resume_run_s")},
+            "launches": launches, "health": decisions,
+            "save_s": _save_seconds(a["log"]),
+            "sidecar_bytes": sidecar.stat().st_size,
+            "model_bytes": state.stat().st_size,
+            "report_bytes": html.stat().st_size}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -926,13 +1223,16 @@ def main() -> int:
         kernels[3]["launches"] = tiny["foolsgold"]["launches"]
         loan = run_loan_path(tmp)
         kernels[4]["launches"] = loan["launches"]
+        bf16 = run_bf16(tmp, path)
+        crash = run_crash_resume(tmp)
 
     for k in kernels:
         del k["bytes"]
     print(json.dumps({"main_path": path, "robust_rounds": robust,
                       "aggregate_ms": rules, "small_reference": small,
                       "fault_round": fault, "tiny_path": tiny,
-                      "loan_path": loan}), flush=True)
+                      "loan_path": loan, "bf16": bf16,
+                      "crash_resume": crash}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -942,4 +1242,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["bf16-rounds"]:     # phase 8's fresh process
+        sys.path.insert(0, str(REPO))
+        sys.exit(bf16_rounds(Path(sys.argv[2])))
     sys.exit(main())

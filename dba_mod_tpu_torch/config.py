@@ -350,25 +350,15 @@ def _unported(what: str, item: str) -> NotImplementedError:
 def check_ported(raw: Dict[str, Any]) -> None:
     """Raise NotImplementedError for a knob whose code path the port does
     not carry yet. Every default passes."""
-    if str(raw["compute_dtype"]) not in ("float32", "f32"):
-        raise _unported(f"compute_dtype: {raw['compute_dtype']}",
-                        "A20 (bf16)")
     if raw["mode"] != "sync":
         raise _unported("mode: async", "A16")
     if int(raw["num_devices"]) not in (0, 1):
         raise _unported(f"num_devices: {raw['num_devices']}", "A18")
-    if bool(raw["forensics"]) or bool(raw["model_health_check"]):
-        raise _unported("forensics / model_health_check", "A14")
     if (bool(raw["telemetry"]) or bool(raw["tensorboard"])
             or str(raw["profile_dir"] or "")):
         raise _unported("telemetry / tensorboard / profile_dir", "A17")
     if bool(raw["overlap_eval"]) or bool(raw["pipeline_rounds"]):
         raise _unported("overlap_eval / pipeline_rounds", "A17")
-    if (raw["resumed_model"] == "auto" or bool(raw["graceful_shutdown"])
-            or float(raw["watchdog_soft_s"]) or float(raw["watchdog_hard_s"])
-            or int(raw["keep_last_n"])):
-        raise _unported("resumed_model: auto / graceful_shutdown / "
-                        "watchdog / keep_last_n", "A15")
     if float(raw["heartbeat_interval_s"]) or float(
             raw["fault_host_loss_prob"]):
         raise _unported("heartbeat / fault_host_loss_prob", "A18")

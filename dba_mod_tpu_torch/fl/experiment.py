@@ -11,12 +11,21 @@ among the participants; LOAN's clients are US-state shards, its poisoned
 rounds first probe the global model's backdoor accuracy for the adaptive
 poison LR, and its dropout masks are drawn per round segment on the CPU.
 The robust dispatch (fault_injection / screen_updates) retries a round whose
-aggregate is non-finite from the captured pre-round state with an escalated
-norm screen, and degrades it when retries run out. The FoolsGold memory and
-the stale lane's replay source live in RAM only: the full-state sidecar
-that would carry them across a resume is ROADMAP A15. The async engine,
-forensics, the health sentinel, telemetry and round overlap are ROADMAP
-A14-A17; config.check_ported rejects their knobs.
+aggregate is non-finite — or, with the health sentinel on, outside its norm
+band — from the captured pre-round state with an escalated norm screen,
+and degrades it when retries run out (the last-good model is carried
+forward). The plain path rolls an unhealthy merge back the same way.
+``forensics: true`` streams each round's per-client defense evidence to
+forensics.jsonl / client_forensics.csv.
+
+Crash/preemption tolerance: the run loop stops at a round boundary after
+SIGTERM/SIGINT (``graceful_shutdown``; the CLI then exits 75), a watchdog
+aborts a stalled sync point (exit 76), and every snapshot ``save_model``
+writes carries the full-state sidecar and an integrity manifest, so
+``resumed_model: auto`` continues the killed run's trajectory exactly, in
+its own run folder. The async engine, telemetry, round overlap and
+multi-device runs are ROADMAP A16-A18; config.check_ported rejects their
+knobs.
 """
 from __future__ import annotations
 
@@ -41,7 +50,8 @@ from dba_mod_tpu_torch.data.partition import (equal_split_indices,
 from dba_mod_tpu_torch.fl import faults as flt
 from dba_mod_tpu_torch.fl.device_data import (make_image_device_data,
                                                make_loan_device_data)
-from dba_mod_tpu_torch.fl.rounds import EvalPlans, RoundEngine
+from dba_mod_tpu_torch.fl.rounds import (REASON_NAMES, EvalPlans,
+                                         HealthSentinel, RoundEngine)
 from dba_mod_tpu_torch.fl.selection import select_agents
 from dba_mod_tpu_torch.fl.state import build_client_tasks
 from dba_mod_tpu_torch.models import ModelVars, build_model
@@ -49,7 +59,9 @@ from dba_mod_tpu_torch.models.loan import (draw_dropout_masks,
                                            dropout_generator)
 from dba_mod_tpu_torch.ops.aggregation import foolsgold_init
 from dba_mod_tpu_torch.ops.sgd import loan_adaptive_poison_lr
+from dba_mod_tpu_torch.utils import run_guard
 from dba_mod_tpu_torch.utils.device import pin_float32_math, resolve_device
+from dba_mod_tpu_torch.utils.forensics import ForensicsWriter
 from dba_mod_tpu_torch.utils.html import dict_html
 from dba_mod_tpu_torch.utils.recorder import Recorder
 
@@ -96,17 +108,44 @@ class Experiment:
         cfg.check_ported(params.raw)
         self.params = params
         self.device = resolve_device(device)
-        # compute_dtype is float32 (check_ported rejects bf16): pin cuDNN
-        # and cuBLAS to full float32, as the JAX reference computes
-        pin_float32_math()
-        self.folder: Optional[Path] = (params.make_run_folder()
-                                       if save_results else None)
+        self.model_def = build_model(params)
+        if self.model_def.dtype == torch.float32:
+            # float32 runs pin cuDNN and cuBLAS to full float32, as the JAX
+            # reference computes; bf16 runs compute in bf16 either way
+            pin_float32_math()
+        # crash/preemption guard: stop flag checked at round boundaries +
+        # watchdog around host sync points; inert with the default knobs
+        self.guard = run_guard.RunGuard.from_params(params)
+        self.interrupted = False
+        self._ckpt_mgr: Optional[ckpt.CheckpointManager] = None
+        # resumed_model: auto — find the newest VERIFIED checkpoint across
+        # run_dir's run folders BEFORE making a new folder: the resumed run
+        # re-enters the killed run's folder and continues its streams
+        self._auto_resume_path: Optional[Path] = None
+        resumed_folder: Optional[Path] = None
+        if params.resume_mode == "auto":
+            hit = ckpt.find_auto_resume(Path(str(params["run_dir"])),
+                                        params.type, params.run_name)
+            if hit is not None:
+                resumed_folder, self._auto_resume_path = hit
+        if not save_results:
+            self.folder: Optional[Path] = None
+        elif resumed_folder is not None:
+            self.folder = resumed_folder
+            ckpt.sweep_stale(self.folder)
+            params.write_yaml(self.folder)
+        else:
+            self.folder = params.make_run_folder()
         if self.folder is not None:
             (self.folder / "params.html").write_text(
                 dict_html(params.raw, params.current_time))
         self.recorder = Recorder(self.folder,
                                  tensorboard=bool(params.get("tensorboard")))
-        self.model_def = build_model(params)
+        # defense forensics: per-client rows from the round's ForensicStats
+        # slot; no writer, no files and no device work when off
+        self.forensics_writer: Optional[ForensicsWriter] = (
+            ForensicsWriter(self.folder)
+            if bool(params.get("forensics", False)) else None)
         seed = int(params.get("random_seed", 1))
         self.select_rng = random.Random(seed)
         self.plan_rng = np.random.RandomState(seed)
@@ -128,33 +167,47 @@ class Experiment:
                            if self.is_poison_run
                            else int(params["internal_epochs"]))
 
-        # Global model: fresh init or named resume (image_helper.py:56-67)
+        # Global model: fresh init or resume (image_helper.py:56-67)
         self.global_vars = self.model_def.init_vars(seed, self.device)
         self.start_epoch = 1
-        if params.resume_mode == "named":
+        self.interval = int(params["aggr_epoch_interval"])
+        self._resume_aux: Optional[Dict[str, Any]] = None
+        resume_path: Optional[Path] = None
+        if params.resume_mode == "auto":
+            resume_path = self._auto_resume_path
+            if resume_path is None:
+                logger.warning("resume auto: no verified checkpoint under "
+                               "%s — starting a fresh run",
+                               params["run_dir"])
+        elif params.resume_mode == "named":
             path = (Path(str(params.get("checkpoint_dir", "saved_models")))
                     / str(params["resumed_model_name"]))
             # integrity gate: verified → load; manifest-less (pretrain) →
             # load unverified, the reference behavior; corrupt → the newest
             # verified same-name sibling
             resume_path = ckpt.resolve_verified(path)
-            self.global_vars, saved_epoch, saved_lr = ckpt.load_checkpoint(
-                resume_path, self.global_vars)
-            self.start_epoch = saved_epoch + 1
-            self.params.raw["lr"] = saved_lr
-            logger.info("resumed %s: lr=%s start_epoch=%d", resume_path,
-                        saved_lr, self.start_epoch)
+        if resume_path is not None:
+            self._resume_from(resume_path)
 
-        self.interval = int(params["aggr_epoch_interval"])
         self.engine = RoundEngine(params, self.model_def, self.device_data,
                                   self.eval_plans,
                                   num_segments=self.interval)
         self.max_round_retries = int(params.get("max_round_retries", 2))
         self.retry_backoff_s = float(params.get("retry_backoff_s", 0.0))
+        # post-merge model-health sentinel (README "Self-healing
+        # federation"): None when off — no check, no host read
+        self._sentinel: Optional[HealthSentinel] = None
+        if bool(params.get("model_health_check", False)):
+            self._sentinel = HealthSentinel(
+                band=float(params.get("health_norm_band", 0.0)),
+                ema_alpha=float(params.get("health_ema_alpha", 0.1)),
+                warmup=int(params.get("health_warmup_merges", 3)),
+                ring_size=int(params.get("rollback_ring", 0)))
         # last round's received deltas: the stale lane's replay source (zero
-        # before the first round; not carried across a resume, ROADMAP A15)
+        # before the first round; carried across a resume by the sidecar)
         self._prev_deltas: Optional[ModelVars] = None
-        # FoolsGold's id-keyed memory, carried round to round (RAM only)
+        # FoolsGold's id-keyed memory, carried round to round (and across a
+        # resume by the sidecar)
         grad_len = int(self.model_def.similarity_param(
             self.global_vars.params).numel())
         self.fg_state = foolsgold_init(self.num_participants, grad_len,
@@ -174,6 +227,98 @@ class Experiment:
         # max client, quantized to _STEP_BUCKET (identical numerics: dropped
         # steps were fully-masked no-ops)
         self.dynamic_steps = bool(params.get("dynamic_steps", False))
+        self._apply_resume_aux()
+
+    # ---------------------------------------------------------------- resume
+    def _resume_from(self, resume_path: Path) -> None:
+        """Restore the global model (and lr) from a verified or named
+        snapshot and load its full-state sidecar, when it has one; an
+        auto-resume also continues the run folder's streams."""
+        params = self.params
+        self.global_vars, saved_epoch, saved_lr = ckpt.load_checkpoint(
+            resume_path, self.global_vars)
+        # an auto-resume continues the killed run's round grid: the snapshot
+        # records the completed round's BASE epoch, and with
+        # aggr_epoch_interval > 1 the next round starts one interval on; a
+        # named resume keeps the reference's +1
+        self.start_epoch = saved_epoch + (
+            self.interval if params.resume_mode == "auto" else 1)
+        params.raw["lr"] = saved_lr
+        # the sidecar (save_model runs write one; pretrain snapshots do not
+        # — model-only resume, the reference behavior); a sidecar of another
+        # epoch than the model's is discarded the same way
+        self._resume_aux = ckpt.load_aux_state(resume_path)
+        if (self._resume_aux is not None
+                and int(self._resume_aux["epoch"]) != saved_epoch):
+            logger.warning(
+                "resume sidecar is for epoch %d but the model checkpoint is "
+                "epoch %d — discarding the sidecar (model-only resume)",
+                int(self._resume_aux["epoch"]), saved_epoch)
+            self._resume_aux = None
+        logger.info("resumed %s: lr=%s start_epoch=%d aux=%s", resume_path,
+                    saved_lr, self.start_epoch, self._resume_aux is not None)
+        if params.resume_mode == "auto" and self.folder is not None:
+            # continue the killed run's streams through the resumed round's
+            # FINAL epoch and drop the rest: a kill can land after round N
+            # recorded but before its checkpoint verified, and the replayed
+            # round N must not appear twice
+            cut = saved_epoch + self.interval - 1
+            kept = self.recorder.load_from_folder(cut)
+            logger.info("resume auto: continuing the streams of %s (%d "
+                        "metrics rows kept through epoch %d)", self.folder,
+                        kept, cut)
+            if self.forensics_writer is not None:
+                self.forensics_writer.load_from_folder(cut)
+
+    def _apply_resume_aux(self) -> None:
+        """Restore the full-state sidecar: the RNG streams, FoolsGold's
+        memory, the best-val loss, the stale lane's replay source and the
+        sentinel's EMA — so a killed-and-resumed run continues the
+        uninterrupted trajectory exactly (the reference cannot:
+        helper.py:545-549 is RAM only). The fault-plan and dropout-mask
+        streams are keyed by (seed, epoch[, segment]) and carry no state."""
+        aux = self._resume_aux
+        if not aux:
+            return
+        self.select_rng.setstate(aux["select_rng"])
+        name, key, pos, has_gauss, cached = aux["plan_rng"]
+        self.plan_rng.set_state((name, key.numpy().astype(np.uint32), pos,
+                                 has_gauss, cached))
+        if aux["noise_gen_device"] == self.noise_gen.device.type:
+            self.noise_gen.set_state(aux["noise_gen"])
+        else:   # CPU and CUDA generators keep different states
+            logger.warning("resume sidecar's DP-noise stream is a %s "
+                           "generator's; this run's is %s — it restarts "
+                           "from the seed", aux["noise_gen_device"],
+                           self.noise_gen.device.type)
+        self.best_loss = float(aux["best_loss"])
+        self.last_backdoor_acc = aux["last_backdoor_acc"]
+        mem = aux["fg_memory"]
+        if mem.shape != self.fg_state.memory.shape:
+            raise ValueError(
+                f"resume sidecar FoolsGold memory shape {tuple(mem.shape)} "
+                f"does not match this run's "
+                f"{tuple(self.fg_state.memory.shape)} — the checkpoint "
+                "belongs to a different participant set or model")
+        self.fg_state = self.fg_state._replace(memory=mem.to(self.device))
+        pd = aux.get("prev_deltas")
+        if pd is not None and self.engine.fault_cfg.stale_enabled:
+            self._prev_deltas = ModelVars(
+                {k: v.to(self.device) for k, v in pd["params"].items()},
+                {k: v.to(self.device) for k, v in pd["batch_stats"].items()})
+        if self._sentinel is not None:
+            self._sentinel.load_state(aux.get("health"))
+
+    def _snapshot_rng(self) -> Dict[str, Any]:
+        """Every RNG stream a round consumes, as the sidecar stores it: the
+        numpy key as an int64 tensor and the torch generator's state as a
+        CPU byte tensor, so a sidecar loads on any machine."""
+        name, key, pos, has_gauss, cached = self.plan_rng.get_state()
+        return {"select_rng": self.select_rng.getstate(),
+                "plan_rng": (name, torch.from_numpy(key.astype(np.int64)),
+                             int(pos), int(has_gauss), float(cached)),
+                "noise_gen": self.noise_gen.get_state().cpu(),
+                "noise_gen_device": self.noise_gen.device.type}
 
     # ------------------------------------------------------------------ data
     def _load_data_and_partition(self, seed: int):
@@ -352,11 +497,17 @@ class Experiment:
             self.global_vars, tasks_list, idx_seq, mask_seq, self.noise_gen,
             num_samples=num_samples, fg_state=self.fg_state,
             dropout_seq=dropout_seq)
+        rolled = False
+        if self._sentinel is not None:
+            new_vars, payload, rolled = self._health_gate(
+                epoch, self.global_vars, new_vars, payload)
+            if rolled:
+                new_fg = self.fg_state
         self.global_vars, self.fg_state = new_vars, new_fg
         return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
                              agent_names=agent_names, adv_names=adv_names,
                              tasks_list=tasks_list, mask_list=mask_list,
-                             payload=payload)
+                             payload=payload, forced_degraded=rolled)
 
     def _poison_probe(self, epoch: int, agent_names) -> Optional[float]:
         """LOAN's adaptive poison-LR probe (loan_train.py:67-75): in a round
@@ -372,7 +523,8 @@ class Experiment:
         if self.stale_poison_probe and self.last_backdoor_acc is not None:
             acc = self.last_backdoor_acc      # round N-1's battery
         else:
-            acc = float(self.engine.backdoor_acc(self.global_vars))
+            with self.guard.watch("round/poison_probe"):
+                acc = float(self.engine.backdoor_acc(self.global_vars))
         logger.info("epoch %d: poison probe backdoor acc %.4f -> poison lr "
                     "%r", epoch, acc, loan_adaptive_poison_lr(
                         float(params["poison_lr"]), acc,
@@ -416,6 +568,41 @@ class Experiment:
         nm = self.engine.base_norm_mult if norm_mult is None else norm_mult
         return dict(fault_plan=plan, prev_deltas=prev, norm_mult=nm)
 
+    def _health_check(self, epoch: int, vars_before: ModelVars,
+                      new_vars: ModelVars):
+        """The sentinel's decision on a merged model: (model to commit,
+        rolled back). A healthy merge is committed to the EMA and ring
+        here."""
+        healthy, unorm = self._sentinel.check(vars_before, new_vars)
+        if healthy:
+            self._sentinel.commit(epoch, new_vars, unorm)
+        self._note_health(epoch, healthy, unorm)
+        if healthy:
+            return new_vars, False
+        return self._sentinel.rollback_target(vars_before), True
+
+    def _note_health(self, epoch: int, healthy: bool, unorm: float) -> None:
+        """Log the sentinel's decision on a round (after its commit)."""
+        st = self._sentinel
+        logger.log(logging.INFO if healthy else logging.WARNING,
+                   "epoch %d: health check %s: update norm %.6g, EMA %.6g "
+                   "after %d merges, band %gx", epoch,
+                   "healthy" if healthy else "rolled back to last-good model",
+                   unorm, st.ema, st.merges, st.band)
+
+    def _health_gate(self, epoch: int, vars_before: ModelVars,
+                     new_vars: ModelVars, payload):
+        """The sentinel on the plain (non-retrying) path: _health_check,
+        plus — since the round already ran the global battery on the
+        rejected model — a re-run on the restored one, spliced into the
+        payload so the recorded round stays finite. Returns (vars,
+        payload, rolled_back)."""
+        target, rolled = self._health_check(epoch, vars_before, new_vars)
+        if not rolled:
+            return target, payload, False
+        return (target, payload[:1] + (self.engine.global_evals(target),)
+                + payload[2:], True)
+
     @staticmethod
     def _escalate_norm_mult(cur: float) -> float:
         """Retry-k screening escalation: switch the norm screen on at 10×
@@ -427,18 +614,19 @@ class Experiment:
                          tasks_list, idx_seq, mask_seq, mask_list,
                          num_samples, dropout_seq=None) -> RoundInFlight:
         """The robust round: run it, then, only when screening is on, check
-        that the aggregated model is finite (one host sync) and re-run the
-        round from the captured pre-round state with an escalated norm
-        screen, up to max_round_retries. When retries run out the round is
-        degraded: the pre-round state is carried forward and the global
-        battery re-run on it."""
+        that the aggregated model is finite (one host sync) — and, with the
+        sentinel on, healthy — and re-run the round from the captured
+        pre-round state with an escalated norm screen, up to
+        max_round_retries. When retries run out the round is degraded: the
+        last-good model (the pre-round state without a ring) is carried
+        forward and the global battery re-run on it."""
         vars_before, fg_before = self.global_vars, self.fg_state
         # every attempt draws the same DP noise, as the JAX package's fixed
         # per-round key does
         gen_state = self.noise_gen.get_state()
         norm_mult: Optional[float] = None
         retries = 0
-        finite = True
+        finite, healthy, unorm = True, True, 0.0
         while True:
             self.noise_gen.set_state(gen_state)
             new_vars, new_fg, payload, deltas_out = self.engine.round_fn(
@@ -447,9 +635,19 @@ class Experiment:
                 dropout_seq=dropout_seq,
                 **self._robust_round_args(epoch, num_samples, norm_mult))
             if not self.engine.screening:
-                break   # unscreened injection: faults flow through
-            finite = bool(payload[9].global_finite)   # the one host sync
-            if finite or retries >= self.max_round_retries:
+                # unscreened injection: faults flow through; with no norm
+                # screen to escalate an unhealthy merge goes straight to
+                # the rollback below
+                if self._sentinel is not None:
+                    healthy, unorm = self._sentinel.check(vars_before,
+                                                          new_vars)
+                break
+            with self.guard.watch("round/screen_sync"):
+                finite = bool(payload[9].global_finite)  # the one host sync
+            healthy, unorm = True, 0.0
+            if finite and self._sentinel is not None:
+                healthy, unorm = self._sentinel.check(vars_before, new_vars)
+            if (finite and healthy) or retries >= self.max_round_retries:
                 break
             retries += 1
             cur = (self.engine.base_norm_mult if norm_mult is None
@@ -458,17 +656,27 @@ class Experiment:
             if self.retry_backoff_s > 0:
                 time.sleep(min(self.retry_backoff_s * 2 ** (retries - 1),
                                30.0))
-            logger.warning("epoch %d: aggregated model non-finite; retry "
-                           "%d/%d with norm screen at %.2f× median", epoch,
-                           retries, self.max_round_retries, norm_mult)
-        forced = self.engine.screening and not finite
+            logger.warning(
+                "epoch %d: aggregated model %s; retry %d/%d with norm "
+                "screen at %.2f× median", epoch,
+                "non-finite" if not finite else "outside the health band",
+                retries, self.max_round_retries, norm_mult)
+        forced = (self.engine.screening and not finite) or not healthy
         if forced:
-            logger.warning("epoch %d: aggregated model non-finite after %d "
-                           "retries; degraded round (pre-round model carried "
-                           "forward)", epoch, retries)
-            new_vars, new_fg = vars_before, fg_before
+            logger.warning(
+                "epoch %d: aggregated model %s after %d retries; degraded "
+                "round (last-good model carried forward)", epoch,
+                "non-finite" if not finite else "outside the health band",
+                retries)
+            new_vars = (self._sentinel.rollback_target(vars_before)
+                        if self._sentinel is not None else vars_before)
+            new_fg = fg_before
             payload = (payload[:1] + (self.engine.global_evals(new_vars),)
                        + payload[2:])
+        elif self._sentinel is not None:
+            self._sentinel.commit(epoch, new_vars, unorm)
+        if self._sentinel is not None:
+            self._note_health(epoch, not forced, unorm)
         self.global_vars, self.fg_state = new_vars, new_fg
         if self.engine.fault_cfg.stale_enabled:
             self._prev_deltas = deltas_out
@@ -480,10 +688,12 @@ class Experiment:
 
     def finalize_round(self, fl: RoundInFlight) -> Dict[str, Any]:
         t_fin = time.perf_counter()
-        # the round's one blocking transfer
-        (locals_, globals_, metrics, delta_norms, wv, alpha,
-         batches, is_updated, seg_locals, rstats,
-         fstats) = to_host(fl.payload)
+        # the round's one blocking transfer — where a wedged runtime
+        # stalls, hence the watchdog zone
+        with self.guard.watch("round/finalize"):
+            (locals_, globals_, metrics, delta_norms, wv, alpha,
+             batches, is_updated, seg_locals, rstats,
+             fstats) = to_host(fl.payload)
         finalize_time = time.perf_counter() - t_fin
         times = {"round_time": time.perf_counter() - fl.t0,
                  "dispatch_time": fl.dispatch_time,
@@ -505,6 +715,9 @@ class Experiment:
                      fl.tasks_list, metrics, locals_, globals_, delta_norms,
                      wv, alpha, times, batches, fl.mask_list, seg_locals,
                      robust)
+        if self.forensics_writer is not None and fstats is not None:
+            self._record_forensics(fl, locals_, delta_norms, wv, alpha,
+                                   fstats, robust)
         return {"epoch": fl.epoch, "agents": fl.agent_names,
                 "global_acc": float(globals_.clean.acc),
                 "backdoor_acc": (float(globals_.poison.acc)
@@ -512,6 +725,36 @@ class Experiment:
                 **times, **robust}
 
     # ------------------------------------------------------------- recording
+    def _record_forensics(self, fl: RoundInFlight, locals_, delta_norms,
+                          wv, alpha, fstats, robust) -> None:
+        """One forensic record per round: the round's ForensicStats slot
+        plus what only the experiment knows (names, adversary membership,
+        defense weights, the local poison battery)."""
+        params = self.params
+        names = list(fl.agent_names)
+        adv = set(params.adversary_list)
+        poison_acc = None
+        if self.is_poison_run and locals_ is not None:
+            poison_acc = np.asarray(locals_.poison_post.acc)
+        robust_agg = params.aggregation != cfg.AGGR_MEAN
+        self.forensics_writer.add_round(
+            epoch=fl.epoch, aggregation=params.aggregation, names=names,
+            participant_ids=np.asarray(fl.tasks_list[0].participant_id),
+            adversary_flags=[int(n in adv) for n in names],
+            delta_norms=np.asarray(delta_norms),
+            recv_norms=np.asarray(fstats.recv_norms),
+            cosine=np.asarray(fstats.cosine_to_agg),
+            verdict=np.asarray(fstats.verdict),
+            reason_codes=np.asarray(fstats.reason),
+            reason_names=REASON_NAMES,
+            weights=np.asarray(wv) if robust_agg else None,
+            alpha=np.asarray(alpha) if robust_agg else None,
+            poison_acc=poison_acc,
+            oracle_calls=int(fstats.oracle_calls),
+            n_retries=int(robust.get("n_retries", 0)),
+            degraded=bool(robust.get("degraded", False)))
+        self.forensics_writer.save()
+
     def _record(self, epoch, seg_epochs, agent_names, adv_names, tasks_list,
                 metrics, locals_, globals_, delta_norms, wv, alpha, times,
                 batches=None, mask_list=None, seg_locals=None, robust=None):
@@ -694,14 +937,30 @@ class Experiment:
         rec.save(self.is_poison_run)
 
     # ------------------------------------------------------------------- run
+    @property
+    def checkpoint_manager(self) -> ckpt.CheckpointManager:
+        """Manifest/retention policy bound to the CURRENT run folder
+        (rebuilt when the folder changes)."""
+        if self._ckpt_mgr is None or self._ckpt_mgr.folder != self.folder:
+            self._ckpt_mgr = ckpt.CheckpointManager(
+                self.folder,
+                keep_last_n=int(self.params.get("keep_last_n", 0)),
+                manifests=bool(self.params.get("checkpoint_manifests",
+                                               True)))
+        return self._ckpt_mgr
+
     def save_model(self, epoch: int) -> None:
-        """Checkpoint the round's post-aggregation global state:
-        model_last, plus .epoch_N for save_on_epochs and .best whenever the
-        global eval loss improves (helper.py:433-435), each with a
-        manifest when checkpoint_manifests is on."""
+        """Checkpoint the round's post-aggregation state: model_last, plus
+        .epoch_N for save_on_epochs and .best whenever the global eval loss
+        improves (helper.py:433-435). Every snapshot gets the full-state
+        sidecar, then its manifest (covering the sidecar); a snapshot being
+        overwritten is cloned to .prev until its replacement verifies;
+        retention GC runs last."""
         params = self.params
         if not params["save_model"] or self.folder is None:
             return
+        t0 = time.perf_counter()
+        mgr = self.checkpoint_manager
         path = self.folder / "model_last.pt.tar"
         lr = float(params["lr"])
         written = [path]
@@ -710,24 +969,67 @@ class Experiment:
         if self.last_global_loss < self.best_loss:
             written.append(Path(str(path) + ".best"))
             self.best_loss = self.last_global_loss
+        mgr.prepare_overwrite(written)
+        # the sidecar (a deviation from the reference, which loses these on
+        # restart): every snapshot gets one, so resuming from .epoch_N or
+        # .best does not silently reset the defense either
+        aux = {"epoch": int(epoch),
+               "fg_memory": self.fg_state.memory.detach().cpu(),
+               "best_loss": float(self.best_loss),
+               "last_backdoor_acc": self.last_backdoor_acc,
+               **self._snapshot_rng()}
+        if self.engine.fault_cfg.stale_enabled and \
+                self._prev_deltas is not None:
+            # the stale lane's replay source: what the server received this
+            # round (model-sized × C; the lane is opt-in)
+            aux["prev_deltas"] = {
+                "params": {k: v.detach().cpu()
+                           for k, v in self._prev_deltas.params.items()},
+                "batch_stats": {k: v.detach().cpu() for k, v in
+                                self._prev_deltas.batch_stats.items()}}
+        if self._sentinel is not None:
+            aux["health"] = self._sentinel.state()
         for p in written:
             ckpt.save_checkpoint(p, self.global_vars, epoch, lr)
-            if bool(params.get("checkpoint_manifests", True)):
-                ckpt.write_manifest(p, epoch)
+            ckpt.save_aux_state(p, aux)
+        mgr.note_saved(written, epoch)
+        mgr.gc()
+        logger.info("epoch %d: saved %d snapshot(s) in %.3fs: %s", epoch,
+                    len(written), time.perf_counter() - t0,
+                    [p.name for p in written])
 
     def run(self, epochs: Optional[int] = None) -> Dict[str, Any]:
-        """Run rounds start_epoch..epochs (the config's when None). The
-        JAX package's run() adds the graceful-stop guard, async-save waits
-        and telemetry teardown around this loop (ROADMAP A15/A17)."""
-        return self._run_rounds(epochs)
+        """Run rounds start_epoch..epochs (the config's when None) under
+        the guard: SIGTERM/SIGINT handlers are installed around the loop
+        (and the previous ones restored after) when graceful_shutdown is
+        on."""
+        self.interrupted = False
+        with self.guard:
+            return self._run_rounds(epochs)
 
     def _run_rounds(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         last: Dict[str, Any] = {}
         end = epochs if epochs is not None else int(self.params["epochs"])
         for epoch in range(self.start_epoch, end + 1, self.interval):
+            if self.guard.stop_requested:
+                # round-boundary stop: the previous round's save_model
+                # already wrote a verified checkpoint and the recorder
+                # saved — nothing in flight to lose
+                self._note_interrupted(epoch)
+                break
+            self.guard.watchdog.epoch = epoch
             last = self.run_round(epoch)
             self.save_model(epoch)
             logger.info("epoch %d done in %.2fs acc=%.2f backdoor=%s",
                         epoch, last["round_time"], last["global_acc"],
                         last["backdoor_acc"])
         return last
+
+    def _note_interrupted(self, next_epoch: int) -> None:
+        """A graceful stop was honored at a round boundary: record it so
+        the CLI exits with run_guard.EXIT_INTERRUPTED and a wrapper can
+        relaunch with ``--resume auto``."""
+        self.interrupted = True
+        logger.warning(
+            "graceful stop honored at the round boundary before epoch %d — "
+            "exiting (resume with --resume auto)", next_epoch)

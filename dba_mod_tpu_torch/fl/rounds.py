@@ -1,6 +1,7 @@
 """The round engine: train + aggregate over the stacked client axis, plus
-the local/global evaluation batteries (port of dba_mod_tpu/fl/rounds.py; the
-forensic, health and grouped branches are ROADMAP A14 and A19).
+the local/global evaluation batteries, the defense forensics and the
+post-merge health sentinel (port of dba_mod_tpu/fl/rounds.py; its grouped
+branch is ROADMAP A19).
 
 A round is
 
@@ -20,12 +21,17 @@ A round is
 
 `round_fn` runs them all and returns the payload in the order the JAX
 package's ``Experiment.finalize_round`` unpacks it, with RobustStats (or
-None) in slot 9.
+None) in slot 9 and ForensicStats (``forensics: true``; None otherwise) in
+the last slot. The forensics are computed on the device and come to the
+host in the round's one transfer at finalize, with no sync of their own.
+:class:`HealthSentinel` (``model_health_check``) checks a merged model
+with one scalar host read per check.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Optional
+import functools
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +103,126 @@ class RobustStats(NamedTuple):
     degraded: torch.Tensor        # bool: aggregation skipped (< min)
     global_finite: torch.Tensor   # bool: post-aggregation model finite
     survivor_mask: torch.Tensor   # [C] bool
+
+
+class ForensicStats(NamedTuple):
+    """Per-client defense-forensics diagnostics, computed on the device
+    when `forensics: true` (None in the payload otherwise)."""
+    recv_norms: torch.Tensor      # [C] ‖Δ_params‖ as RECEIVED by the server
+                                  # (post fault injection; NaN/Inf for a
+                                  # corrupted payload, honestly)
+    cosine_to_agg: torch.Tensor   # [C] cos(received Δ_c, applied update)
+    verdict: torch.Tensor         # [C] bool: client entered the aggregate
+    reason: torch.Tensor          # [C] int32 quarantine reason (REASON_*)
+    oracle_calls: torch.Tensor    # int32: RFA's Weiszfeld count (1 else)
+
+
+# quarantine-reason codes carried in ForensicStats.reason
+REASON_OK = 0           # aggregated
+REASON_DROPPED = 1      # never reported (injected dropout)
+REASON_NONFINITE = 2    # failed the finite screen
+REASON_NORM = 3         # exceeded the norm-screen threshold
+REASON_NAMES = {REASON_OK: "ok", REASON_DROPPED: "dropped",
+                REASON_NONFINITE: "nonfinite", REASON_NORM: "norm_exceeded"}
+
+
+def forensic_stats(global_vars: ModelVars, new_vars: ModelVars,
+                   recv_deltas: ModelVars, survivor_mask: torch.Tensor,
+                   reason: torch.Tensor, oracle_calls) -> ForensicStats:
+    """The per-client forensics (dba_mod_tpu/fl/rounds.py:129-151):
+    `recv_deltas` are what the server received (post-fault); each is
+    compared by cosine with the update the server APPLIED (new - old
+    params), which works the same under every rule (and gives 0 for a
+    degraded round, whose update is zero). A NaN-corrupted row gives a NaN
+    norm/cosine for that client only."""
+    recv_norms = torch.func.vmap(tree_global_norm)(recv_deltas.params)
+    pts = agg.flatten_stacked(recv_deltas.params)              # [C, P]
+    upd = torch.cat([(new_vars.params[k] - global_vars.params[k]).reshape(-1)
+                     for k in recv_deltas.params])             # [P]
+    unorm = torch.sqrt(torch.sum(upd * upd))
+    denom = torch.clamp_min(recv_norms * unorm, 1e-12)
+    cos = (pts @ upd) / denom
+    dev = recv_norms.device
+    return ForensicStats(recv_norms, cos, survivor_mask,
+                         reason.to(torch.int32),
+                         torch.as_tensor(oracle_calls, dtype=torch.int32,
+                                         device=dev))
+
+
+def model_health_stats(old_vars: ModelVars, new_vars: ModelVars
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The device half of the health sentinel (dba_mod_tpu/fl/rounds.py:
+    191-205): (every leaf of the committed model finite, global L2 norm of
+    the applied update over the full state), one pass over the tree."""
+    old, new = _merged(old_vars), _merged(new_vars)
+    dev = next(iter(new.values())).device
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    sq = torch.zeros((), dtype=torch.float32, device=dev)
+    for k, n in new.items():
+        if not n.is_floating_point():
+            continue
+        finite = finite & torch.all(torch.isfinite(n))
+        d = (n - old[k]).to(torch.float32)
+        sq = sq + torch.sum(d * d)
+    return finite, torch.sqrt(sq)
+
+
+class HealthSentinel:
+    """Post-merge model-health gate (``model_health_check``; the JAX
+    package's HealthSentinel, dba_mod_tpu/fl/rounds.py:208-261). An
+    unhealthy merge is one whose committed model has a non-finite leaf,
+    or — once ``warmup`` healthy merges have seeded the trailing EMA —
+    whose update norm exceeds ``band`` × that EMA (``health_norm_band``; 0
+    keeps only the finite check). Healthy commits feed the EMA and a
+    last-good ring of up to ``ring_size`` model versions;
+    ``rollback_target`` hands back the newest ring entry, or the caller's
+    pre-merge fallback when the ring is off or empty. The ring lives in
+    memory only; (ema, merges) ride the resume sidecar through
+    state()/load_state(), so the band re-arms as it would have."""
+
+    def __init__(self, band: float, ema_alpha: float, warmup: int,
+                 ring_size: int):
+        self.band = float(band)
+        self.alpha = float(ema_alpha)
+        self.warmup = int(warmup)
+        self.ring_size = int(ring_size)
+        self.ema = 0.0
+        self.merges = 0
+        self.ring: List[Tuple[int, Any]] = []  # (version, model vars)
+
+    def check(self, old_vars: ModelVars, new_vars: ModelVars
+              ) -> Tuple[bool, float]:
+        """(healthy, update_norm) for one candidate merge — one host
+        read."""
+        finite, norm = model_health_stats(old_vars, new_vars)
+        finite, norm = torch.stack((finite.to(norm.dtype), norm)).tolist()
+        healthy = bool(finite)
+        if (healthy and self.band > 0 and self.merges >= max(1, self.warmup)
+                and self.ema > 0):
+            healthy = norm <= self.band * self.ema
+        return healthy, norm
+
+    def commit(self, version: int, new_vars: ModelVars, norm: float) -> None:
+        """Record one healthy committed merge: advance the EMA and push the
+        model onto the last-good ring."""
+        self.merges += 1
+        self.ema = (norm if self.merges == 1
+                    else self.alpha * norm + (1.0 - self.alpha) * self.ema)
+        if self.ring_size > 0:
+            self.ring.append((int(version), new_vars))
+            if len(self.ring) > self.ring_size:
+                self.ring.pop(0)
+
+    def rollback_target(self, fallback: ModelVars) -> ModelVars:
+        return self.ring[-1][1] if self.ring else fallback
+
+    def state(self) -> Dict[str, Any]:
+        return {"ema": float(self.ema), "merges": int(self.merges)}
+
+    def load_state(self, st: Optional[Dict[str, Any]]) -> None:
+        if st:
+            self.ema = float(st.get("ema", 0.0))
+            self.merges = int(st.get("merges", 0))
 
 
 def _merged(mv: ModelVars) -> Dict[str, torch.Tensor]:
@@ -313,6 +439,9 @@ class RoundEngine:
         self.base_norm_mult = float(params.get("screen_norm_mult", 0.0))
         self.is_poison_run = bool(params["is_poison"])
         self.do_local_eval = bool(params.get("local_eval", True))
+        # defense forensics: when off the payload's last slot stays None
+        # and no forensic work runs
+        self.forensics = bool(params.get("forensics", False))
         self.eval_clean = make_eval_fn(model_def, data, poison=False)
         self.eval_poison = make_eval_fn(model_def, data, poison=True)
         self.eval_clean_s = make_stacked_eval_fn(model_def, data,
@@ -512,7 +641,7 @@ class RoundEngine:
         ).to(dev)
         agg_kw = dict(fg_state=fg_state, participant_ids=pids,
                       num_samples=ns, nbt_deltas=nbt)
-        stats, deltas_out = None, None
+        stats, fstats, deltas_out = None, None, None
         if norm_mult is not None:
             fcfg = self.fault_cfg
             counted = ns > 0
@@ -559,10 +688,39 @@ class RoundEngine:
             stats = RobustStats(n_dropped, n_quar, n_surv, degraded, gfin,
                                 smask)
             res = res._replace(new_vars=new_vars, new_fg_state=new_fg)
+            if self.forensics:
+                # the quarantine reason, consistent with the mask applied:
+                # never reported → dropped; reported but screened out →
+                # nonfinite or norm_exceeded (without screening smask ==
+                # reported, so the middle branch never fires)
+                if self.screening:
+                    finite = _per_client_finite(deltas)
+                    if self.fg_enabled:
+                        finite = finite & _per_client_finite(fg_grads)
+                else:
+                    finite = torch.ones_like(smask)
+                i32 = functools.partial(torch.full_like, smask,
+                                        dtype=torch.int32)
+                reason = torch.where(
+                    ~reported, i32(REASON_DROPPED),
+                    torch.where(reported & ~smask,
+                                torch.where(finite, i32(REASON_NORM),
+                                            i32(REASON_NONFINITE)),
+                                i32(REASON_OK)))
+                fstats = forensic_stats(global_vars, new_vars, deltas,
+                                        smask, reason,
+                                        res.num_oracle_calls)
         else:
             res = self.aggregate_fn(global_vars, deltas, gen,
                                     fg_grads=fg_grads, fg_feature=fg_feature,
                                     **agg_kw)
+            if self.forensics:
+                C = idx_seq.shape[1]
+                fstats = forensic_stats(
+                    global_vars, res.new_vars, deltas,
+                    torch.ones((C,), dtype=torch.bool, device=dev),
+                    torch.zeros((C,), dtype=torch.int32, device=dev),
+                    res.num_oracle_calls)
         prev = (train.seg_deltas[-1] if train.seg_deltas else
                 _map2(lambda d, _: torch.zeros_like(d), train.deltas,
                       train.deltas))
@@ -579,5 +737,5 @@ class RoundEngine:
                       if self.hyper.track_batches else None)
         payload = (locals_, globals_, train.metrics, train.delta_norms,
                    res.wv, res.alpha, track_pair, res.is_updated, seg_l,
-                   stats, None)
+                   stats, fstats)
         return res.new_vars, res.new_fg_state, payload, deltas_out

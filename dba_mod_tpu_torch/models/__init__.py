@@ -9,7 +9,9 @@ axis. ``ModelDef`` keeps the JAX package's metadata:
   linear layer's weight, stored here torch-style as [out, in];
 - ``has_batch_stats`` / ``has_dropout``: whether the model carries BN
   running stats / takes dropout keep masks in train mode;
-- ``num_classes``.
+- ``num_classes``;
+- ``dtype``: the compute type (``compute_dtype``). Parameters, BN running
+  stats and the logits stay float32; forward and backward run in it.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ class ModelDef:
     # (params, stats, x, train, dropout) -> (logits, new_stats)
     _apply: Callable[..., Tuple[torch.Tensor, Tree]]
     has_dropout: bool = False
+    dtype: torch.dtype = torch.float32
 
     def init_vars(self, seed: int, device: torch.device) -> ModelVars:
         """torch-default init from a CPU generator seeded with `seed`
@@ -68,35 +71,51 @@ class ModelDef:
         return params[self.similarity_path[0]]
 
 
-def _resnet(spec: resnet.ResNetSpec, num_classes: int):
+def _resnet(spec: resnet.ResNetSpec, num_classes: int, dtype: torch.dtype):
     def init(gen):
         return ModelVars(*resnet.init_vars(gen, num_classes, spec))
 
     def apply(params, stats, x, train, dropout):
-        return resnet.apply(params, stats, x, train, spec)
+        return resnet.apply(params, stats, x, train, spec, dtype)
 
     return init, apply
 
 
+def compute_dtype_of(params: cfg.Params) -> torch.dtype:
+    """The compute type a config asks for (dba_mod_tpu/models/__init__.py:
+    82-88)."""
+    name = str(params.get("compute_dtype", "float32"))
+    if name in ("float32", "f32"):
+        return torch.float32
+    if name in ("bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"unknown compute_dtype {name!r}")
+
+
 def build_model(params: cfg.Params) -> ModelDef:
     t = params.type
+    dtype = compute_dtype_of(params)
     if t == cfg.TYPE_MNIST:
         return ModelDef(name="MnistNet", input_shape=(28, 28, 1),
                         num_classes=10, similarity_path=("fc2.weight",),
                         has_batch_stats=False,
                         _init=lambda gen: ModelVars(mnist.init_params(gen),
                                                     {}),
-                        _apply=lambda p, s, x, train, d: mnist.apply(p, x))
+                        _apply=lambda p, s, x, train, d: mnist.apply(
+                            p, x, dtype),
+                        dtype=dtype)
     if t == cfg.TYPE_CIFAR:
-        init, apply = _resnet(resnet.CIFAR18, 10)
+        init, apply = _resnet(resnet.CIFAR18, 10, dtype)
         return ModelDef(name="CifarResNet18", input_shape=(32, 32, 3),
                         num_classes=10, similarity_path=("fc.weight",),
-                        has_batch_stats=True, _init=init, _apply=apply)
+                        has_batch_stats=True, _init=init, _apply=apply,
+                        dtype=dtype)
     if t == cfg.TYPE_TINYIMAGENET:
-        init, apply = _resnet(resnet.TINY18, 200)
+        init, apply = _resnet(resnet.TINY18, 200, dtype)
         return ModelDef(name="TinyResNet18", input_shape=(64, 64, 3),
                         num_classes=200, similarity_path=("fc.weight",),
-                        has_batch_stats=True, _init=init, _apply=apply)
+                        has_batch_stats=True, _init=init, _apply=apply,
+                        dtype=dtype)
     if t == cfg.TYPE_LOAN:
         return ModelDef(name="LoanNet", input_shape=(loan.IN_DIM,),
                         num_classes=loan.NUM_CLASSES,
@@ -105,6 +124,6 @@ def build_model(params: cfg.Params) -> ModelDef:
                         _init=lambda gen: ModelVars(loan.init_params(gen),
                                                     {}),
                         _apply=lambda p, s, x, train, d: loan.apply(
-                            p, x, train, d),
-                        has_dropout=True)
+                            p, x, train, d, dtype),
+                        has_dropout=True, dtype=dtype)
     raise ValueError(f"unknown workload type {t!r}")

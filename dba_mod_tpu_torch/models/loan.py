@@ -10,6 +10,10 @@ rule. Nothing inside the function draws random numbers, so it batches under
 ``torch.func.vmap`` and gives the same result on the card and on the CPU
 for the same masks; :func:`draw_dropout_masks` makes a segment's masks from
 a CPU generator.
+
+`dtype` is the compute type: the input and each layer's weight and bias are
+cast to it (flax ``dtype=``), and the logits come back float32, as the JAX
+module's ``x.astype(jnp.float32)`` hands them back.
 """
 from __future__ import annotations
 
@@ -41,16 +45,21 @@ def _dropout(x: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
 
 
 def apply(params: Dict[str, torch.Tensor], x: torch.Tensor, train: bool,
-          dropout: Optional[Sequence[torch.Tensor]] = None
-          ) -> Tuple[torch.Tensor, Dict]:
-    """x: [N, 91] float → (logits [N, 9], {}). In train mode `dropout` is
-    the pair of keep masks ([N, 46], [N, 23] bool)."""
+          dropout: Optional[Sequence[torch.Tensor]] = None,
+          dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, Dict]:
+    """x: [N, 91] float → (float32 logits [N, 9], {}). In train mode
+    `dropout` is the pair of keep masks ([N, 46], [N, 23] bool)."""
+    def dense(y, i):
+        return F.linear(y, params[f"fc{i}.weight"].to(dtype),
+                        params[f"fc{i}.bias"].to(dtype))
+
+    x = x.to(dtype)
     for i in (1, 2):
-        x = F.linear(x, params[f"fc{i}.weight"], params[f"fc{i}.bias"])
+        x = dense(x, i)
         if train:
             x = _dropout(x, dropout[i - 1])
         x = F.relu(x)
-    return F.linear(x, params["fc3.weight"], params["fc3.bias"]), {}
+    return dense(x, 3).to(torch.float32), {}
 
 
 def dropout_generator(seed: int, epoch: int, segment: int

@@ -13,6 +13,12 @@ of dba_mod_tpu/models/resnet.py::ResNet, cifar_resnet18 and tiny_resnet18).
 BatchNorm is models/norm.py's functional, unbiased-running-var rule. Inputs
 are NHWC (the JAX package's layout, in which triggers are stamped); the model
 permutes to NCHW for cuDNN.
+
+`dtype` is the compute type, cast where flax casts (models/resnet.py of the
+JAX package, ``dtype=`` on every layer): the input on entry, each weight at
+its convolution or linear layer; BatchNorm computes in float32 and returns
+the compute type. Parameters and running stats stay float32, and the head
+hands back float32 logits.
 """
 from __future__ import annotations
 
@@ -94,10 +100,15 @@ def init_vars(gen: torch.Generator, num_classes: int = 10,
 
 
 def apply(params: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
-          x: torch.Tensor, train: bool, spec: ResNetSpec = CIFAR18
+          x: torch.Tensor, train: bool, spec: ResNetSpec = CIFAR18,
+          dtype: torch.dtype = torch.float32
           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """x: [N, H, W, 3] float → (logits [N, classes], new BN stats)."""
+    """x: [N, H, W, 3] float → (float32 logits [N, classes], new BN
+    stats)."""
     new_stats: Dict[str, torch.Tensor] = {}
+
+    def conv(y, name, **kw):
+        return F.conv2d(y, params[f"{name}.weight"].to(dtype), **kw)
 
     def bn(name, y):
         out, m, v = batch_norm(y, params[f"{name}.weight"],
@@ -108,25 +119,22 @@ def apply(params: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
         new_stats[f"{name}.running_var"] = v
         return out
 
-    x = x.permute(0, 3, 1, 2)
+    x = x.to(dtype).permute(0, 3, 1, 2)
     if spec.stem == "cifar":
-        x = F.relu(bn("stem_bn", F.conv2d(x, params["stem_conv.weight"],
-                                          padding=1)))
+        x = F.relu(bn("stem_bn", conv(x, "stem_conv", padding=1)))
     else:
-        x = F.relu(bn("stem_bn", F.conv2d(x, params["stem_conv.weight"],
-                                          stride=2, padding=3)))
+        x = F.relu(bn("stem_bn", conv(x, "stem_conv", stride=2, padding=3)))
         # torch pads max pooling with -inf, as flax's nn.max_pool does with
         # explicit padding
         x = F.max_pool2d(x, 3, 2, padding=1)
     for i, (cin, planes, stride) in enumerate(block_plan(spec)):
         p = f"blocks.{i}"
-        y = F.conv2d(x, params[f"{p}.conv1.weight"], stride=stride,
-                     padding=1)
+        y = conv(x, f"{p}.conv1", stride=stride, padding=1)
         y = F.relu(bn(f"{p}.bn1", y))
-        y = F.conv2d(y, params[f"{p}.conv2.weight"], padding=1)
+        y = conv(y, f"{p}.conv2", padding=1)
         y = bn(f"{p}.bn2", y)
         if _has_shortcut(cin, planes, stride):
-            r = F.conv2d(x, params[f"{p}.sc_conv.weight"], stride=stride)
+            r = conv(x, f"{p}.sc_conv", stride=stride)
             r = bn(f"{p}.sc_bn", r)
         else:
             r = x
@@ -136,4 +144,6 @@ def apply(params: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor],
         x = x.reshape(x.shape[0], -1)
     else:
         x = torch.mean(x, dim=(2, 3))
-    return F.linear(x, params["fc.weight"], params["fc.bias"]), new_stats
+    logits = F.linear(x, params["fc.weight"].to(dtype),
+                      params["fc.bias"].to(dtype))
+    return logits.to(torch.float32), new_stats

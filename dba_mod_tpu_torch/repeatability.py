@@ -87,17 +87,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
     import yaml
+    from dba_mod_tpu_torch.utils.device import use_deterministic_kernels
     saved = (os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
              torch.are_deterministic_algorithms_enabled(),
              torch.is_deterministic_algorithms_warn_only_enabled(),
              torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     if args.deterministic:
-        # cuBLAS reads this when its first handle is made: set it first
-        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-        torch.backends.cudnn.deterministic = True
-        torch.backends.cudnn.benchmark = False
-        torch.use_deterministic_algorithms(True, warn_only=True)
+        use_deterministic_kernels()
     raw = yaml.safe_load(Path(args.params).read_text())
     runs, flagged = [], set()
     try:

@@ -6,6 +6,8 @@ the CPU on its own.
 """
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -30,3 +32,16 @@ def pin_float32_math() -> None:
     both TF32 switches are turned off."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def use_deterministic_kernels() -> None:
+    """Deterministic kernels for the rest of the process, so the same run
+    from the same seed gives bitwise the same model on the card: cuDNN's
+    deterministic algorithms without autotuning, and
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` with the
+    cuBLAS workspace setting it needs (read when cuBLAS makes its first
+    handle, so call this before anything runs on the card)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)

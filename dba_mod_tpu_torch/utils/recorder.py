@@ -1,8 +1,8 @@
 """Result recording with column-schema parity to the reference's CSVs
 (utils/csv_record.py), plus a JSONL metrics stream — the PyTorch port's own
 copy of dba_mod_tpu/utils/recorder.py: the same files, columns and rows.
-Its TensorBoard scalar mirror (flax's writer) is ROADMAP A17, and the
-auto-resume reload of a run folder's streams is A15.
+Its TensorBoard scalar mirror (flax's writer) is ROADMAP A17.
+`load_from_folder` continues a run folder's streams on an auto-resume.
 
 Like the reference, `save()` rewrites every CSV each round
 (csv_record.py:21-59); every rewrite is atomic (tempfile in the run folder +
@@ -149,6 +149,77 @@ class Recorder:
                  kwargs.get("round_time"),
                  kwargs.get("dispatch_time"),
                  kwargs.get("finalize_time")])
+
+    # ---------------------------------------------------------- resume/load
+    def load_from_folder(self, keep_until_epoch: int) -> int:
+        """Auto-resume continuation: reload this run folder's previously
+        saved CSV/JSONL streams, truncated to rows at or before
+        `keep_until_epoch` (a kill can land after round N recorded but
+        before round N's checkpoint verified — the resumed run replays N,
+        and duplicate rows would corrupt every downstream curve). Because
+        `save()` rewrites every file from these in-memory lists each
+        round, reloading + truncating here is exactly "continue the stream
+        past the resume epoch". CSV cells reload as the strings the writer
+        emitted, so the kept prefix round-trips byte-identically. Returns
+        the number of metrics.jsonl rows kept."""
+        if self.folder is None:
+            return 0
+        cut = int(keep_until_epoch)
+
+        def rows_of(name):
+            path = self.folder / name
+            if not path.exists():
+                return None
+            with open(path, newline="") as f:
+                return list(csv.reader(f))
+
+        def load_csv(name, target, epoch_col, has_header=True):
+            rows = rows_of(name)
+            if rows is None:
+                return
+            body = rows[1:] if has_header and rows else rows
+            for row in body:
+                try:
+                    if int(float(row[epoch_col])) > cut:
+                        continue
+                except (IndexError, ValueError):
+                    continue  # malformed row: drop rather than crash resume
+                target.append(row)
+
+        load_csv("train_result.csv", self.train_result, 2)
+        load_csv("test_result.csv", self.test_result, 1)
+        load_csv("posiontest_result.csv", self.posiontest_result, 1)
+        load_csv("poisontriggertest_result.csv",
+                 self.poisontriggertest_result, 3)
+        load_csv("train_batch_result.csv", self.batch_loss_result, 2)
+        load_csv("distance_result.csv", self.batch_distance_result, 2)
+        load_csv("round_result.csv", self.round_result, 0)
+        # scale rows start with (epoch, norm) pairs — filter on the first
+        # cell; weight rows are epochless [names, wv, alpha] triplets, one
+        # per recorded round, so keep one triplet per kept round row
+        load_csv("scale_result.csv", self.scale_result, 0, has_header=False)
+        wrows = rows_of("weight_result.csv")
+        if wrows is not None:
+            n_triplets = min(len(wrows) // 3, len(self.round_result))
+            self.weight_result.extend(wrows[:3 * n_triplets])
+
+        jsonl = self.folder / "metrics.jsonl"
+        if jsonl.exists():
+            with open(jsonl) as f:
+                for line in f:
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        row = json.loads(line)
+                        keep = int(row.get("epoch", 0)) <= cut
+                    except (ValueError, TypeError, AttributeError):
+                        continue  # malformed line (truncated write, bit
+                                  # rot): drop rather than crash resume,
+                                  # like the CSV loader above
+                    if keep:
+                        self._jsonl_rows.append(row)
+        return len(self._jsonl_rows)
 
     # ------------------------------------------------------------------ save
     def _atomic_write(self, name: str, emit) -> None:

@@ -191,20 +191,16 @@ def test_fedavg_matches_jax():
 
 
 @pytest.mark.parametrize("override,item", [
-    ({"fault_injection": True, "fault_host_loss_prob": 0.1}, "A18"),
-    ({"graceful_shutdown": True}, "A15"),
-    ({"compute_dtype": "bfloat16"}, "A20"),
-    ({"mode": "async"}, "A16"),
-    ({"num_devices": 4}, "A18"),
-    ({"pipeline_rounds": True}, "A17"),
-    ({"sequential_debug": True}, "A19"),
-    ({"forensics": True}, "A14"),
-    ({"model_health_check": True}, "A14"),
-    ({"telemetry": True}, "A17"),
-    ({"tensorboard": True}, "A17"),
-    ({"overlap_eval": True}, "A17"),
-    ({"resumed_model": "auto"}, "A15"),
-    ({"grouped_clients": True}, "A19"),
+    pytest.param({"fault_injection": True, "fault_host_loss_prob": 0.1},
+                 "A18", id="override0-A18"),
+    pytest.param({"mode": "async"}, "A16", id="override3-A16"),
+    pytest.param({"num_devices": 4}, "A18", id="override4-A18"),
+    pytest.param({"pipeline_rounds": True}, "A17", id="override5-A17"),
+    pytest.param({"sequential_debug": True}, "A19", id="override6-A19"),
+    pytest.param({"telemetry": True}, "A17", id="override9-A17"),
+    pytest.param({"tensorboard": True}, "A17", id="override10-A17"),
+    pytest.param({"overlap_eval": True}, "A17", id="override11-A17"),
+    pytest.param({"grouped_clients": True}, "A19", id="override13-A19"),
 ])
 def test_unported_knobs_raise(override, item):
     import yaml
@@ -213,6 +209,23 @@ def test_unported_knobs_raise(override, item):
     with pytest.raises(NotImplementedError, match=item):
         cfg.Params.from_dict(raw)
     jcfg.Params.from_dict(raw)     # the reference accepts the same dict
+
+
+@pytest.mark.parametrize("override", [
+    {"compute_dtype": "bfloat16"}, {"forensics": True},
+    {"model_health_check": True, "health_norm_band": 3.0},
+    {"resumed_model": "auto"}, {"graceful_shutdown": True},
+    {"watchdog_soft_s": 60.0, "watchdog_hard_s": 600.0},
+    {"keep_last_n": 2}], ids=["A20-bf16", "A14-forensics", "A14-health",
+                              "A15-auto", "A15-graceful", "A15-watchdog",
+                              "A15-keep_last_n"])
+def test_ported_knobs_pass(override):
+    """The knobs of ROADMAP A14, A15 and A20 are ported: check_ported
+    accepts them, as the reference's config does."""
+    import yaml
+    raw = yaml.safe_load(open(SMOKE))
+    raw.update(override)
+    assert cfg.Params.from_dict(raw).raw == jcfg.Params.from_dict(raw).raw
 
 
 def test_config_reads_reference_yaml_unchanged():

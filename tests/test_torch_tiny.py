@@ -23,12 +23,14 @@ from dba_mod_tpu.data import datasets as jdatasets
 from dba_mod_tpu.fl.state import build_client_tasks as jtasks
 from dba_mod_tpu.models import ModelVars as JModelVars
 from dba_mod_tpu.models import build_model as jbuild
+from dba_mod_tpu.models.norm import TorchBatchNorm
 from dba_mod_tpu.ops import triggers as jtriggers
 from dba_mod_tpu_torch import convert
 from dba_mod_tpu_torch.config import Params
 from dba_mod_tpu_torch.data import datasets
 from dba_mod_tpu_torch.fl.state import build_client_tasks
-from dba_mod_tpu_torch.models import build_model
+from dba_mod_tpu_torch.models import _resnet, build_model, resnet
+from dba_mod_tpu_torch.models.resnet import TINY18
 from dba_mod_tpu_torch.ops import triggers
 from test_torch_slice import _check_acc, _engine_round, _experiments
 
@@ -89,30 +91,93 @@ def test_tiny_forward_matches_flax(tiny_pair, train):
             np.testing.assert_array_equal(got, np.asarray(ref))
 
 
+def _f64_stats(tiny_pair):
+    """The running stats after the same train-mode pass in float64: the
+    port's model built to compute in float64, on float64 copies of the
+    weights and the input."""
+    _, _, tdef, tmv = tiny_pair
+    _, apply64 = _resnet(TINY18, 200, torch.float64)
+    x = np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32)
+    with torch.no_grad():
+        _, s64 = apply64({k: v.double() for k, v in tmv.params.items()},
+                         {k: v.double() for k, v in tmv.batch_stats.items()},
+                         torch.from_numpy(x).double(), True, None)
+    return jax.tree_util.tree_leaves(convert.to_jax_numpy(
+        tdef.name, type(tmv)(tmv.params, s64))[1])
+
+
 def test_tiny_train_bn_stats_match_flax(tiny_pair):
-    """The running stats after one train-mode pass from the init stats. On
-    failure the message also gives each package's distance from the same
-    pass in float64 (the port's model run on float64 tensors): where both
-    are near the bound, the bound is below float32's own error at this
-    batch, not a fault of either package."""
+    """The running stats after one train-mode pass from the init stats,
+    each package held against the same pass in float64: the port must be
+    no further from it than 1.25 × the JAX package is, and within 2e-6.
+    The two packages differ by up to 1.8e-6 from each other, above 1e-6,
+    but each BatchNorm layer fed the same input agrees to 1e-6
+    (test_tiny_bn_layers_match_flax_on_the_same_input): the gap is the
+    float32 accumulation of the convolutions upstream (XLA and cuDNN/oneDNN
+    sum in other orders), and layer 4 averages 8 values a channel."""
     _, jstats, _, tstats = _tiny_forward(tiny_pair, True)
     got = jax.tree_util.tree_leaves(tstats)
     ref = [np.asarray(r) for r in jax.tree_util.tree_leaves(jstats)]
+    f64 = _f64_stats(tiny_pair)
+    errs = {side: max(float(np.abs(a - b).max()) for a, b in zip(v, f64))
+            for side, v in (("jax", ref), ("port", got))}
     diff = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
-    if diff > 1e-6:
-        _, _, tdef, tmv = tiny_pair
-        x = np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32)
+    print(f"BN running stats: port vs JAX {diff:.3g}; distance from "
+          f"float64: {errs}")
+    assert errs["port"] <= 1.25 * errs["jax"], errs
+    assert errs["port"] <= 2e-6, errs
+
+
+def test_tiny_bn_layers_match_flax_on_the_same_input(tiny_pair):
+    """Every BatchNorm layer of the full Tiny ResNet-18, fed the SAME
+    float32 input — its real input in one train-mode pass, captured from
+    the port's forward — in both packages. The running stats agree to
+    1e-6. The outputs (|y| up to 5) are held against the same layer in
+    float64: neither package is within 1e-6 of it (the JAX package is
+    7.0e-6 from it at the stem, float32's E[x²]−E[x]² at ~6 ulp), so the
+    port's worst distance from float64 must be at most 1.25 × the JAX
+    package's, and the two within 1e-5 of each other. The BN function adds
+    nothing to the whole-net gap."""
+    _, _, tdef, tmv = tiny_pair
+    seen = []
+    real = resnet.batch_norm
+
+    def capture(x, scale, bias, ra_mean, ra_var, train):
+        seen.append((x, scale, bias, ra_mean, ra_var))
+        return real(x, scale, bias, ra_mean, ra_var, train)
+
+    x = np.random.RandomState(1).rand(2, 64, 64, 3).astype(np.float32)
+    resnet.batch_norm = capture
+    try:
         with torch.no_grad():
-            _, s64 = tdef.apply(type(tmv)(
-                {k: v.double() for k, v in tmv.params.items()},
-                {k: v.double() for k, v in tmv.batch_stats.items()}),
-                torch.from_numpy(x).double(), train=True)
-        _, s64 = convert.to_jax_numpy(tdef.name, type(tmv)(tmv.params, s64))
-        f64 = jax.tree_util.tree_leaves(s64)
-        errs = {side: max(float(np.abs(a - b).max()) for a, b in zip(v, f64))
-                for side, v in (("jax", ref), ("port", got))}
-        pytest.fail(f"BN running stats: port vs JAX {diff:.3g} > 1e-6; "
-                    f"distance from float64: {errs}")
+            tdef.apply(tmv, torch.from_numpy(x), train=True)
+    finally:
+        resnet.batch_norm = real
+    assert len(seen) == 20            # stem + 16 in blocks + 3 shortcuts
+    worst = {"mean": 0.0, "var": 0.0, "y": 0.0, "port_y_f64": 0.0,
+             "jax_y_f64": 0.0}
+    for xin, scale, bias, mean, var in seen:
+        y, m, v = real(xin, scale, bias, mean, var, True)
+        y64, _, _ = real(xin.double(), scale.double(), bias.double(),
+                         mean.double(), var.double(), True)
+        variables = {"params": {"scale": scale.numpy(), "bias": bias.numpy()},
+                     "batch_stats": {"mean": mean.numpy(),
+                                     "var": var.numpy()}}
+        jy, upd = TorchBatchNorm(use_running_average=False).apply(
+            variables, jnp.asarray(xin.permute(0, 2, 3, 1).numpy()),
+            mutable=["batch_stats"])
+        y, y64 = y.permute(0, 2, 3, 1).numpy(), y64.permute(0, 2, 3, 1)
+        for k, got, want in (
+                ("mean", m.numpy(), upd["batch_stats"]["mean"]),
+                ("var", v.numpy(), upd["batch_stats"]["var"]), ("y", y, jy),
+                ("port_y_f64", y, y64.numpy()),
+                ("jax_y_f64", np.asarray(jy), y64.numpy())):
+            worst[k] = max(worst[k], float(np.abs(
+                got - np.asarray(want)).max()))
+    print(f"per-layer BN on the same input: {worst}")
+    assert worst["mean"] <= 1e-6 and worst["var"] <= 1e-6, worst
+    assert worst["port_y_f64"] <= 1.25 * worst["jax_y_f64"], worst
+    assert worst["y"] <= 1e-5, worst
 
 
 def test_stem_max_pool_pads_with_minus_inf():
