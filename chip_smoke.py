@@ -71,8 +71,25 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    each run's fused launches equal its local steps; the sentinel's
    decision per round is printed.
 
+10. the buffered-async engine (``mode: async``): (a) in a fresh process
+   under deterministic kernels, the poisoned MNIST smoke run with the local
+   battery, async at buffer_k == no_models against sync — bitwise equal
+   global models and recorded outputs (less clocks and the async-only
+   keys); (b) full-width CIFAR async through the CLI with bench.py's
+   --async knobs (K = 5, polynomial staleness weighting 0.5, arrival rate 2,
+   jitter 0.5, straggler tail 0.1 x 5), model-only resumed from phase 4's
+   pretrain, four merges with poisoned waves: one fused launch per local
+   step of every dispatched wave; per merge round_time, dispatch_time,
+   occupancy and staleness; waves dispatched, the outstanding-waves
+   high-water mark, the sidecar's bytes and save seconds, peak memory and
+   updates absorbed per second; (c) an MNIST async run at
+   configs/async_smoke_params.yaml's knobs under deterministic kernels,
+   straight and SIGKILLed once merge 3 committed then ``--resume auto``:
+   bitwise equal final models, equal metrics rows and CSVs.
+
 Phase 3 also runs (as 3b) at the Tiny-ImageNet size (FoolsGold off and on)
-and at the LOAN size, so the kernels line has five rows.
+and at the LOAN size, so the kernels line has five rows. The CIFAR row's
+launches are phase 4's plus phase 10b's.
 
 The last lines are a JSON object with the kernels' numbers, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}. Exits
@@ -1170,6 +1187,379 @@ def run_crash_resume(tmp: Path) -> dict:
             "report_bytes": html.stat().st_size}
 
 
+# --------------------------------------------------------------- phase 10
+ASYNC_ONLY = ("mode", "buffer_occupancy", "staleness_mean", "staleness_max",
+              "waves_dispatched", "arrivals_total", "virtual_time")
+CLOCK_KEYS = ("time", "round_time", "dispatch_time", "finalize_time")
+
+
+def _metrics_rows(folder: Path, drop=CLOCK_KEYS) -> list:
+    return [{k: v for k, v in json.loads(l).items() if k not in drop}
+            for l in (folder / "metrics.jsonl").read_text().splitlines()
+            if l.strip()]
+
+
+def async_keystone(tmp: Path) -> int:
+    """Phase 10a, in the fresh process run_async starts (deterministic
+    kernels must be chosen before anything runs on the card): the poisoned
+    MNIST smoke run with the local battery, synchronous and then
+    buffered-async at buffer_k == no_models with non-trivial arrival knobs.
+    Prints one JSON line: whether the global models are bitwise equal and
+    the recorded outputs (less clocks and the async-only keys) equal, and
+    each run's fused launches, local steps and seconds."""
+    from dba_mod_tpu_torch.utils.device import use_deterministic_kernels
+    use_deterministic_kernels()
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.ops import fused_update as fu
+    from dba_mod_tpu_torch.utils.recorder import canonical_run_outputs
+
+    raw = dict(yaml.safe_load(
+        (REPO / "configs" / "smoke_params.yaml").read_text()),
+        epochs=4, save_model=False)
+    knobs = {"sync": {}, "async": dict(mode="async", arrival_rate=3.0,
+                                       arrival_jitter=0.7,
+                                       straggler_tail=0.25,
+                                       straggler_factor=6.0)}
+    runs = {}
+    for mode, extra in knobs.items():
+        p = Params.from_dict(dict(raw, run_dir=str(tmp / f"keystone_{mode}"),
+                                  **extra))
+        exp = Experiment(p, save_results=True, device="cuda")
+        fu.fused_step_update.launches = 0
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        runs[mode] = {"exp": exp, "s": time.perf_counter() - t0,
+                      "launches": fu.fused_step_update.launches,
+                      "steps": expected_launches(
+                          exp.folder / "train_result.csv",
+                          int(raw["batch_size"]))}
+    a, b = runs["sync"]["exp"], runs["async"]["exp"]
+    ma = {**a.global_vars.params, **a.global_vars.batch_stats}
+    mb = {**b.global_vars.params, **b.global_vars.batch_stats}
+    unequal = [k for k in ma if not torch.equal(ma[k], mb[k])]
+    want, got = (canonical_run_outputs(e.folder) for e in (a, b))
+    got["metrics.jsonl"] = [{k: v for k, v in r.items()
+                             if k not in ASYNC_ONLY}
+                            for r in got["metrics.jsonl"]]
+    differ = sorted(k for k in set(want) | set(got)
+                    if want.get(k) != got.get(k))
+    rows = _metrics_rows(b.folder, drop=())
+    print(json.dumps({
+        "model_bitwise_equal": not unequal, "unequal_leaves": unequal[:5],
+        "outputs_differ": differ, "merges": len(rows),
+        "occupancy": [r["buffer_occupancy"] for r in rows],
+        "staleness_max": max(r["staleness_max"] for r in rows),
+        **{f"{m}_{k}": r[k] for m, r in runs.items()
+           for k in ("s", "launches", "steps")}}), flush=True)
+    return 0
+
+
+def _watch_async(record: dict):
+    """Wrap the async driver's run (its wall seconds and the driver, for
+    stats()), its merge (device-synced seconds), the engine's train_fn (the
+    local steps each dispatched wave runs: those where any client has a
+    sample) and save_model (device-synced seconds, and the model_last
+    sidecar's bytes after it); returns the undo function."""
+    import numpy as np
+    import torch
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch.fl import async_rounds, rounds
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    real = {"run": async_rounds.AsyncDriver.run,
+            "merge": async_rounds.AsyncDriver._merge,
+            "train": rounds.RoundEngine.train_fn,
+            "save": Experiment.save_model}
+
+    def run(self, *args, **kw):
+        record["driver"] = self
+        t = time.perf_counter()
+        try:
+            return real["run"](self, *args, **kw)
+        finally:
+            torch.cuda.synchronize()
+            record["run_s"] = time.perf_counter() - t
+
+    def merge(self, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = real["merge"](self, *args, **kw)
+        torch.cuda.synchronize()
+        record.setdefault("merge_s", []).append(time.perf_counter() - t)
+        return res
+
+    def train(self, global_vars, tasks_seq, idx_seq, mask_seq, *args,
+              **kw):
+        record.setdefault("wave_steps", []).append(
+            int(np.asarray(mask_seq).any(axis=(1, 4)).sum()))
+        return real["train"](self, global_vars, tasks_seq, idx_seq,
+                             mask_seq, *args, **kw)
+
+    def save(self, epoch, extra_aux=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        real["save"](self, epoch, extra_aux=extra_aux)
+        record.setdefault("save_s", []).append(time.perf_counter() - t)
+        side = self.folder / ("model_last.pt.tar" + ckpt.AUX_SUFFIX)
+        record.setdefault("sidecar_bytes", []).append(side.stat().st_size)
+
+    async_rounds.AsyncDriver.run = run
+    async_rounds.AsyncDriver._merge = merge
+    rounds.RoundEngine.train_fn = train
+    Experiment.save_model = save
+
+    def undo():
+        async_rounds.AsyncDriver.run = real["run"]
+        async_rounds.AsyncDriver._merge = real["merge"]
+        rounds.RoundEngine.train_fn = real["train"]
+        Experiment.save_model = real["save"]
+    return undo
+
+
+def run_async_cifar(tmp: Path) -> dict:
+    """Phase 10b: the full-width CIFAR buffered-async path through the CLI,
+    resumed from phase 4's pretrain (no streaming sidecar: a model-only
+    resume, so the stream starts at version = the pretrain's epoch and
+    wave = version·K // C), four merges, poisoning on every wave epoch it
+    reaches."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.models import build_model
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    pre_epoch = int(torch.load(tmp / "ckpt" / "cifar_pretrain" / "smoke" /
+                               ckpt.STATE_FILE, weights_only=True)["epoch"])
+    raw = yaml.safe_load((tmp / "cifar_smoke.yaml").read_text())
+    K, C = 5, int(raw["no_models"])
+    first_wave_epoch = pre_epoch * K // C + 1
+    poison = list(range(first_wave_epoch, first_wave_epoch + 4))
+    # bench.py's --async knobs
+    raw.update(mode="async", buffer_k=K, staleness_weighting="polynomial",
+               staleness_alpha=0.5, arrival_rate=2.0, arrival_jitter=0.5,
+               straggler_tail=0.1, straggler_factor=5.0,
+               async_steps=pre_epoch + 4, save_model=True, save_on_epochs=[],
+               run_dir=str(tmp / "runs_async"),
+               **{"0_poison_epochs": poison, "1_poison_epochs": poison})
+    cfg_path = tmp / "cifar_async.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    rec: dict = {}
+    phases: dict = {}
+    undo_phases = _watch_phases(phases)
+    undo = _watch_async(rec)
+    fu.fused_step_update.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        if cli_main(["train", "--params", str(cfg_path), "--resume",
+                     "cifar_pretrain/smoke"]) != 0:
+            raise AssertionError("async CIFAR train failed")
+        torch.cuda.synchronize()
+    finally:
+        undo()
+        undo_phases()
+    cli_s = time.perf_counter() - t0
+    launches = fu.fused_step_update.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    (folder,) = list((tmp / "runs_async").iterdir())
+    rows = _metrics_rows(folder, drop=())
+    want = list(range(pre_epoch + 1, pre_epoch + 5))
+    if [r["epoch"] for r in rows] != want:
+        raise AssertionError(f"async merges recorded "
+                             f"{[r['epoch'] for r in rows]}, expected {want}")
+    steps = sum(rec["wave_steps"])
+    waves = rows[-1]["waves_dispatched"] - (pre_epoch * K // C)
+    if launches != steps or launches == 0 or len(rec["wave_steps"]) != waves:
+        raise AssertionError(f"fused kernel launched {launches} times; the "
+                             f"{waves} dispatched waves ran "
+                             f"{rec['wave_steps']} local steps")
+    adv = {a for r in rows for a in r["adversaries"]}
+    for r in rows:
+        if r["mode"] != "async" or not 0 < r["buffer_occupancy"] <= K:
+            raise AssertionError(f"bad async row {r}")
+        for k in ("global_acc", "backdoor_acc"):
+            if not math.isfinite(float(r[k])):
+                raise AssertionError(f"non-finite {k} in {r}")
+    if not adv:
+        raise AssertionError("no merge held a poisoned update")
+    ok, why = ckpt.verify_checkpoint(folder / "model_last.pt.tar")
+    aux = ckpt.load_aux_state(folder / "model_last.pt.tar")
+    if not ok or aux is None or aux.get("async_state") is None:
+        raise AssertionError(f"model_last not verified ({why}) or its "
+                             f"sidecar holds no async_state")
+    like = build_model(Params.from_yaml(cfg_path)).init_vars(
+        0, torch.device("cpu"))
+    gv, _, _ = ckpt.load_checkpoint(folder / "model_last.pt.tar", like)
+    if not all(torch.isfinite(v).all() for v in gv.params.values()):
+        raise AssertionError("non-finite global weights after the merges")
+    # as in phase 4, a x100 update can drive a BN running variance below
+    # zero, and the eval loss (and the argmax) of that model is then NaN
+    min_var = min((float(v.min()) for k, v in gv.batch_stats.items()
+                   if k.endswith("running_var")), default=float("nan"))
+    stats = rec["driver"].stats()
+    absorbed = sum(r["buffer_occupancy"] for r in rows)
+    per_merge = [{k: r[k] for k in ("epoch", "round_time", "dispatch_time",
+                                    "buffer_occupancy", "staleness_mean",
+                                    "staleness_max", "adversaries")}
+                 for r in rows]
+    out = {"merges": per_merge, "waves_dispatched": waves,
+           "wave_steps": rec["wave_steps"], "launches": launches,
+           "outstanding_waves_highwater":
+               stats["outstanding_waves_highwater"],
+           "merge_s": [round(x, 4) for x in rec["merge_s"]],
+           "phase_s": {k: [round(x, 4) for x in v]
+                       for k, v in phases.items()},
+           "save_s": [round(x, 4) for x in rec["save_s"]],
+           "sidecar_bytes": rec["sidecar_bytes"],
+           "model_bytes": (folder / "model_last.pt.tar" /
+                           ckpt.STATE_FILE).stat().st_size,
+           "peak_mb": peak_mb, "run_s": rec["run_s"], "cli_s": cli_s,
+           "updates_absorbed": absorbed,
+           "updates_per_s": absorbed / rec["run_s"],
+           "global_acc": [r["global_acc"] for r in rows],
+           "backdoor_acc": [r["backdoor_acc"] for r in rows],
+           "global_loss": [r["global_loss"] if math.isfinite(
+               float(r["global_loss"])) else str(r["global_loss"])
+               for r in rows],
+           "min_running_var": min_var}
+    log(f"phase 10b: CIFAR async (K={K}, polynomial 0.5, bench.py's "
+        f"arrival knobs), 4 merges after a model-only resume at version "
+        f"{pre_epoch}: per merge (round_time s, dispatch_time s, occupancy, "
+        f"staleness mean/max, adversaries) "
+        + "; ".join(f"{m['round_time']:.3f}, {m['dispatch_time']:.3f}, "
+                    f"{m['buffer_occupancy']}, {m['staleness_mean']:.2f}/"
+                    f"{m['staleness_max']:.0f}, {m['adversaries']}"
+                    for m in per_merge)
+        + f"; {waves} waves dispatched (local steps {rec['wave_steps']}), "
+        f"outstanding-waves high-water {out['outstanding_waves_highwater']}"
+        f"; {launches} fused launches = {steps} local steps; merge "
+        f"{out['merge_s']} s; engine phases {out['phase_s']}; save_model "
+        f"{out['save_s']} s with a model_last sidecar of "
+        f"{rec['sidecar_bytes']} B beside a {out['model_bytes']} B model; "
+        f"peak {peak_mb:.0f} MB; {absorbed} updates in {rec['run_s']:.1f} s "
+        f"= {out['updates_per_s']:.3f} updates/s; clean acc "
+        f"{out['global_acc']}, backdoor {out['backdoor_acc']}, global "
+        f"loss {out['global_loss']}, min BN running var {min_var:.4g}")
+    return out
+
+
+def run_async_kill_resume(tmp: Path) -> dict:
+    """Phase 10c: the MNIST async run at configs/async_smoke_params.yaml's
+    knobs (12 merges instead of 8, so the kill has room to land), under
+    deterministic kernels, straight and SIGKILLed once merge 3's checkpoint
+    is committed, then ``--resume auto``; the two final models are bitwise
+    equal, and so are their metrics rows (less clocks) and train CSVs."""
+    import signal
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch import crash_smoke
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.models import build_model
+
+    base = dict(yaml.safe_load(
+        (REPO / "configs" / "async_smoke_params.yaml").read_text()),
+        async_steps=12)
+    args = ["--deterministic"]
+    runs = {}
+    for name in ("straight", "killed"):
+        raw = dict(base, run_dir=str(tmp / f"runs_async_{name}"))
+        cfg_path = tmp / f"async_{name}.yaml"
+        cfg_path.write_text(yaml.safe_dump(raw))
+        log_file = tmp / f"runs_async_{name}.crash_smoke.log"
+        t0 = time.perf_counter()
+        if name == "straight":
+            run_dir = Path(raw["run_dir"])
+            run_dir.mkdir()
+            proc = crash_smoke.launch(cfg_path, "cuda", args, log_file)
+            try:
+                rc = proc.wait(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise
+            if rc != 0:
+                raise AssertionError(f"straight async run exited {rc}:\n"
+                                     + log_file.read_text()[-4000:])
+            (folder,) = crash_smoke.run_folders(run_dir, base["type"])
+            info = {}
+        else:
+            info = crash_smoke.interrupted_run(cfg_path, "cuda", 3, args,
+                                               timeout=600,
+                                               sig=signal.SIGKILL)
+            folder = info.pop("folder")
+        runs[name] = dict(info, folder=folder, log=log_file,
+                          seconds=time.perf_counter() - t0)
+    a, b = runs["straight"], runs["killed"]
+    like = build_model(Params.from_dict(base)).init_vars(
+        0, torch.device("cpu"))
+    ga, ea, _ = ckpt.load_checkpoint(a["folder"] / "model_last.pt.tar", like)
+    gb, eb, _ = ckpt.load_checkpoint(b["folder"] / "model_last.pt.tar", like)
+    ma, mb = {**ga.params, **ga.batch_stats}, {**gb.params, **gb.batch_stats}
+    unequal = [k for k in ma if not torch.equal(ma[k], mb[k])]
+    if ea != eb or ea != 12 or unequal:
+        raise AssertionError(f"killed-and-resumed async model differs from "
+                             f"the straight one (steps {ea}/{eb}): "
+                             f"{unequal[:5]}")
+    ra, rb = _metrics_rows(a["folder"]), _metrics_rows(b["folder"])
+    if ra != rb or [r["epoch"] for r in ra] != list(range(1, 13)):
+        raise AssertionError("async metrics rows differ after the resume")
+    for name in ("train_result.csv", "test_result.csv"):
+        if (a["folder"] / name).read_bytes() != \
+                (b["folder"] / name).read_bytes():
+            raise AssertionError(f"{name} differs after the resume")
+    launches = {n: _launches_logged(r["log"]) for n, r in runs.items()}
+    log(f"phase 10c: MNIST async (async_smoke knobs, 12 merges, "
+        f"deterministic): straight {a['seconds']:.1f}s; SIGKILL once merge "
+        f"3 committed ({b['signalled_after_rounds']} merge rows recorded "
+        f"then, {b['stopped_epochs']} on disk after the kill; "
+        f"{b['first_run_s']:.1f}s), --resume auto from "
+        f"{b['resumed_from']} to {b['epochs'][-1]} "
+        f"({b['resume_run_s']:.1f}s); final models bitwise equal, metrics "
+        f"rows and train/test CSVs equal; fused launches per process "
+        f"{launches}")
+    return {"straight_s": a["seconds"],
+            "killed": {k: b[k] for k in (
+                "signalled_after_rounds", "stopped_epochs", "resumed_from",
+                "epochs", "first_run_s", "resume_run_s")},
+            "launches": launches}
+
+
+def run_async(tmp: Path) -> dict:
+    """Phase 10: the buffered-async engine (10a in a fresh process, 10b,
+    10c)."""
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                          "async-keystone", str(tmp)], capture_output=True,
+                         text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"async keystone failed:\n{out.stdout[-4000:]}"
+                             f"\n{out.stderr[-4000:]}")
+    ks = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"phase 10a: MNIST poisoned smoke run with the local battery, "
+        f"async at buffer_k = no_models against sync, deterministic "
+        f"kernels: model bitwise equal {ks['model_bitwise_equal']}, "
+        f"outputs differing {ks['outputs_differ']}; {ks['merges']} merges "
+        f"of occupancy {ks['occupancy']}, staleness max "
+        f"{ks['staleness_max']}; fused launches sync {ks['sync_launches']} "
+        f"/ async {ks['async_launches']} = local steps {ks['sync_steps']} / "
+        f"{ks['async_steps']}; {ks['sync_s']:.1f} / {ks['async_s']:.1f} s")
+    if (not ks["model_bitwise_equal"] or ks["outputs_differ"]
+            or ks["sync_launches"] != ks["sync_steps"]
+            or ks["async_launches"] != ks["async_steps"]
+            or ks["sync_launches"] != ks["async_launches"]
+            or ks["sync_launches"] == 0):
+        raise AssertionError(f"async keystone on the card: {ks}")
+    cifar = run_async_cifar(tmp)
+    kill = run_async_kill_resume(tmp)
+    return {"keystone": ks, "cifar": cifar, "kill_resume": kill,
+            "launches": cifar["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1225,6 +1615,8 @@ def main() -> int:
         kernels[4]["launches"] = loan["launches"]
         bf16 = run_bf16(tmp, path)
         crash = run_crash_resume(tmp)
+        asyn = run_async(tmp)
+        kernels[0]["launches"] = path["launches"] + asyn["launches"]
 
     for k in kernels:
         del k["bytes"]
@@ -1232,7 +1624,7 @@ def main() -> int:
                       "aggregate_ms": rules, "small_reference": small,
                       "fault_round": fault, "tiny_path": tiny,
                       "loan_path": loan, "bf16": bf16,
-                      "crash_resume": crash}), flush=True)
+                      "crash_resume": crash, "async": asyn}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1245,4 +1637,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["bf16-rounds"]:     # phase 8's fresh process
         sys.path.insert(0, str(REPO))
         sys.exit(bf16_rounds(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["async-keystone"]:  # phase 10a's fresh process
+        sys.path.insert(0, str(REPO))
+        sys.exit(async_keystone(Path(sys.argv[2])))
     sys.exit(main())

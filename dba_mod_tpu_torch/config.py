@@ -350,8 +350,6 @@ def _unported(what: str, item: str) -> NotImplementedError:
 def check_ported(raw: Dict[str, Any]) -> None:
     """Raise NotImplementedError for a knob whose code path the port does
     not carry yet. Every default passes."""
-    if raw["mode"] != "sync":
-        raise _unported("mode: async", "A16")
     if int(raw["num_devices"]) not in (0, 1):
         raise _unported(f"num_devices: {raw['num_devices']}", "A18")
     if (bool(raw["telemetry"]) or bool(raw["tensorboard"])

@@ -9,10 +9,15 @@ rounds have committed (data rows in round_result.csv), and
 expects the graceful-stop exit code 75 and a verified ``model_last``. Then
 it relaunches with ``--resume auto`` and holds that the run finished in the
 SAME run folder with every round recorded exactly once and a verified final
-checkpoint. The run folder lives under the config's ``run_dir``, which is
+checkpoint. A ``mode: async`` config works the same way, its rounds being
+merge steps. The run folder lives under the config's ``run_dir``, which is
 emptied first. Prints one JSON summary line; exits non-zero on a failure.
 
-:func:`interrupted_run` is the launcher the chip smoke test reuses.
+:func:`interrupted_run` is the launcher the chip smoke test reuses; it
+also sends SIGKILL instead (``sig``), once a checkpoint of the asked round
+is committed, and then expects the process killed and a verified snapshot
+to resume from (model_last, or its ``.prev`` clone when the kill landed
+inside a save).
 """
 from __future__ import annotations
 
@@ -65,6 +70,14 @@ def rounds_recorded(run_dir: Path, run_type: str) -> int:
     return rows
 
 
+def committed_epoch(run_dir: Path, run_type: str) -> int:
+    """The epoch of the run folder's committed (manifest-written)
+    model_last; 0 before the first."""
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    return max((ckpt.manifest_epoch(f / "model_last.pt.tar") or 0
+                for f in run_folders(run_dir, run_type)), default=0)
+
+
 def recorded_epochs(folder: Path) -> List[int]:
     return [json.loads(line)["epoch"] for line in
             (folder / "metrics.jsonl").read_text().splitlines() if line]
@@ -72,12 +85,15 @@ def recorded_epochs(folder: Path) -> List[int]:
 
 def interrupted_run(params: Path, device: str, stop_after: int,
                     extra: Sequence[str] = (), timeout: float = 1800.0,
-                    env: Dict[str, str] | None = None) -> dict:
+                    env: Dict[str, str] | None = None,
+                    sig: int = signal.SIGTERM) -> dict:
     """SIGTERM a ``train`` run of `params` once `stop_after` rounds have
-    committed, hold exit 75 and a verified model_last, relaunch it with
+    recorded, hold exit 75 and a verified model_last, relaunch it with
     ``--resume auto`` and hold one run folder holding every round once
-    with a verified final checkpoint. `extra` goes to both launches.
-    Returns the run folder and the numbers seen on the way."""
+    with a verified final checkpoint. With ``sig=signal.SIGKILL`` the kill
+    lands once round `stop_after`'s checkpoint is committed and the first
+    process must die by it. `extra` goes to both launches. Returns the run
+    folder and the numbers seen on the way."""
     import yaml
     from dba_mod_tpu_torch import checkpoint as ckpt
 
@@ -88,9 +104,14 @@ def interrupted_run(params: Path, device: str, stop_after: int,
     t0 = time.perf_counter()
     proc = launch(params, device, extra, log, env)
     deadline = time.monotonic() + timeout
+    if sig == signal.SIGKILL:
+        def reached():
+            return committed_epoch(run_dir, run_type) >= stop_after
+    else:
+        def reached():
+            return rounds_recorded(run_dir, run_type) >= stop_after
     try:
-        while (rounds_recorded(run_dir, run_type) < stop_after
-               and proc.poll() is None):
+        while not reached() and proc.poll() is None:
             if time.monotonic() > deadline:
                 raise AssertionError(f"no {stop_after} committed rounds in "
                                      f"{timeout:.0f}s")
@@ -100,21 +121,34 @@ def interrupted_run(params: Path, device: str, stop_after: int,
                 f"train exited (rc={proc.returncode}) before {stop_after} "
                 f"rounds committed and the signal could land; see {log}")
         signalled_at = rounds_recorded(run_dir, run_type)
-        proc.send_signal(signal.SIGTERM)
+        proc.send_signal(sig)
         rc = proc.wait(timeout=max(deadline - time.monotonic(), 1.0))
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     first_s = time.perf_counter() - t0
-    if rc != 75:
-        raise AssertionError(f"graceful stop exited {rc}, expected 75; "
-                             f"see {log}")
+    want = 75 if sig == signal.SIGTERM else -sig
+    if rc != want:
+        raise AssertionError(f"signal {int(sig)}: exited {rc}, expected "
+                             f"{want}; see {log}")
     (folder,) = run_folders(run_dir, run_type)
     stopped_at = recorded_epochs(folder)
-    ok, why = ckpt.verify_checkpoint(folder / "model_last.pt.tar")
-    if not ok:
-        raise AssertionError(f"model_last after the stop not verified: {why}")
+    if sig == signal.SIGTERM:
+        ok, why = ckpt.verify_checkpoint(folder / "model_last.pt.tar")
+        if not ok:
+            raise AssertionError(f"model_last after the stop not verified: "
+                                 f"{why}")
+        resume_point = folder / "model_last.pt.tar"
+    else:
+        # a kill can land inside a save: model_last may then fail
+        # verification, and the resume falls back to its .prev clone
+        resume_point = ckpt.latest_verified_checkpoint(folder,
+                                                       quarantine=False)
+        if resume_point is None:
+            raise AssertionError(f"no verified checkpoint in {folder} "
+                                 f"after the kill")
+    resumed_from = (resume_point.name, ckpt.manifest_epoch(resume_point))
 
     t0 = time.perf_counter()
     proc = launch(params, device, [*extra, "--resume", "auto"], log, env)
@@ -140,6 +174,7 @@ def interrupted_run(params: Path, device: str, stop_after: int,
         raise AssertionError(f"final checkpoint not verified: {why}")
     return {"folder": folder, "signalled_after_rounds": signalled_at,
             "stopped_epochs": stopped_at, "epochs": epochs,
+            "resumed_from": resumed_from,
             "first_run_s": first_s, "resume_run_s": resume_s}
 
 

@@ -23,8 +23,10 @@ SIGTERM/SIGINT (``graceful_shutdown``; the CLI then exits 75), a watchdog
 aborts a stalled sync point (exit 76), and every snapshot ``save_model``
 writes carries the full-state sidecar and an integrity manifest, so
 ``resumed_model: auto`` continues the killed run's trajectory exactly, in
-its own run folder. The async engine, telemetry, round overlap and
-multi-device runs are ROADMAP A16-A18; config.check_ported rejects their
+its own run folder. ``mode: async`` hands the loop to the buffered-async
+engine (fl/async_rounds.py) under the same guard; its streaming state rides
+the sidecar under ``async_state``. Telemetry, round overlap and
+multi-device runs are ROADMAP A17-A18; config.check_ported rejects their
 knobs.
 """
 from __future__ import annotations
@@ -419,6 +421,16 @@ class Experiment:
         s = max(((s + b - 1) // b) * b, self._STEP_BUCKET_MIN)
         return min(s, max(self.steps_per_epoch, 1))
 
+    def _round_min_steps(self, agent_names) -> int:
+        """The plan's step count: the static one, or with dynamic_steps
+        the round's own max client, bucketed."""
+        if not self.dynamic_steps:
+            return self.steps_per_epoch
+        b = int(self.params["batch_size"])
+        round_max = max((len(self.client_indices[n]) for n in agent_names),
+                        default=1)
+        return self._bucket_steps(max(1, int(np.ceil(round_max / b))))
+
     def build_static_round_inputs(self, epoch: int):
         """Round inputs at the STATIC plan shape, for diagnostics that call
         the engine directly. Consumes the experiment's selection/plan RNG
@@ -463,14 +475,7 @@ class Experiment:
         # (image_train.py:50: the local model trains continuously across the
         # interval; the server applies the summed update once)
         seg_epochs = list(range(epoch, epoch + self.interval))
-        if self.dynamic_steps:
-            b = int(params["batch_size"])
-            round_max = max((len(self.client_indices[n])
-                             for n in agent_names), default=1)
-            min_steps = self._bucket_steps(
-                max(1, int(np.ceil(round_max / b))))
-        else:
-            min_steps = self.steps_per_epoch
+        min_steps = self._round_min_steps(agent_names)
         tasks_list, idx_list, mask_list = [], [], []
         num_samples = None
         for ep in seg_epochs:
@@ -509,16 +514,23 @@ class Experiment:
                              tasks_list=tasks_list, mask_list=mask_list,
                              payload=payload, forced_degraded=rolled)
 
+    def _loan_poisons(self, epoch: int, agent_names) -> bool:
+        """A poisoned LOAN run in which a selected adversary poisons at
+        `epoch`: the rounds whose poison LR adapts to the backdoor
+        accuracy."""
+        params = self.params
+        return (params.type == cfg.TYPE_LOAN and self.is_poison_run
+                and any(params.adversary_slot_of(n) >= 0 and epoch in
+                        params.poison_epochs_for(params.adversary_slot_of(n))
+                        for n in agent_names))
+
     def _poison_probe(self, epoch: int, agent_names) -> Optional[float]:
         """LOAN's adaptive poison-LR probe (loan_train.py:67-75): in a round
         where a selected adversary poisons, the current global model's
         backdoor accuracy (one host sync, as in the JAX package), or with
         stale_poison_probe the last finalized round's. None otherwise."""
         params = self.params
-        if params.type != cfg.TYPE_LOAN or not self.is_poison_run or not any(
-                params.adversary_slot_of(n) >= 0 and epoch in
-                params.poison_epochs_for(params.adversary_slot_of(n))
-                for n in agent_names):
+        if not self._loan_poisons(epoch, agent_names):
             return None
         if self.stale_poison_probe and self.last_backdoor_acc is not None:
             acc = self.last_backdoor_acc      # round N-1's battery
@@ -783,13 +795,7 @@ class Experiment:
         for c, name in enumerate(agent_names):
             for s, ep in enumerate(seg_epochs):
                 n_e = int(tasks_list[s].num_epochs[c])
-                for e in range(n_e):
-                    count = max(float(metrics.count[s, c, e]), 1.0)
-                    rec.add_train(name, (ep - 1) * n_e + e + 1, ep, e + 1,
-                                  float(metrics.loss_sum[s, c, e]) / count,
-                                  100.0 * float(metrics.correct[s, c, e])
-                                  / count,
-                                  int(metrics.correct[s, c, e]), int(count))
+                self._record_train_rows(name, c, s, ep, n_e, metrics)
                 if batches is not None:
                     # [I, C, E*S] per-batch channels; only steps whose batch
                     # mask is non-empty ran (padded epochs/steps are no-ops).
@@ -827,113 +833,109 @@ class Experiment:
                 # runs the whole battery inside the per-global-epoch loop —
                 # same gating as the final segment below
                 for s, seg_ev in enumerate(seg_locals):
-                    ep_s = seg_epochs[s]
-                    seg_poisons = (np.asarray(
+                    seg_poisons = bool(np.asarray(
                         tasks_list[s].poisoning_per_batch)[c] > 0)
-                    if not (seg_poisons and baseline):
-                        # image_train.py:148-155 gating
-                        rec.add_test(name, ep_s,
-                                     float(seg_ev.clean.loss[c]),
-                                     float(seg_ev.clean.acc[c]),
-                                     int(seg_ev.clean.correct[c]),
-                                     int(seg_ev.clean.count[c]))
-                    if seg_poisons and self.is_poison_run:
-                        if not baseline:  # pre-scale row (:157-164)
-                            rec.add_poisontest(
-                                name, ep_s,
-                                float(seg_ev.poison_pre.loss[c]),
-                                float(seg_ev.poison_pre.acc[c]),
-                                int(seg_ev.poison_pre.correct[c]),
-                                int(seg_ev.poison_pre.count[c]))
-                        # post-scale row (:275-282)
-                        rec.add_poisontest(
-                            name, ep_s,
-                            float(seg_ev.poison_post.loss[c]),
-                            float(seg_ev.poison_post.acc[c]),
-                            int(seg_ev.poison_post.correct[c]),
-                            int(seg_ev.poison_post.count[c]))
-                    if (self.is_poison_run and int(np.asarray(
-                            tasks_list[s].adv_slot)[c]) >= 0):
-                        # per-agent trigger row runs for every adversary
-                        # every global epoch (:285-295)
-                        rec.add_triggertest(
-                            name, f"{name}_trigger", "", ep_s,
-                            float(seg_ev.agent_trigger.loss[c]),
-                            float(seg_ev.agent_trigger.acc[c]),
-                            int(seg_ev.agent_trigger.correct[c]),
-                            int(seg_ev.agent_trigger.count[c]))
+                    self._record_local_rows(
+                        name, c, seg_epochs[s], seg_ev,
+                        not (seg_poisons and baseline), seg_poisons,
+                        int(np.asarray(tasks_list[s].adv_slot)[c]) >= 0)
             if locals_ is not None:
-                lr = locals_
                 # the local clean eval for a poisoning client happens inside
                 # `if not baseline` in the reference (image_train.py:148-155);
                 # benign clients always get one (:267-271)
-                if not (final_seg_poisons and baseline):
-                    rec.add_test(name, final_ep, float(lr.clean.loss[c]),
-                                 float(lr.clean.acc[c]),
-                                 int(lr.clean.correct[c]),
-                                 int(lr.clean.count[c]))
-                if poisoning and self.is_poison_run:
-                    if not baseline:
-                        rec.add_poisontest(name, final_ep,
-                                           float(lr.poison_pre.loss[c]),
-                                           float(lr.poison_pre.acc[c]),
-                                           int(lr.poison_pre.correct[c]),
-                                           int(lr.poison_pre.count[c]))
-                    rec.add_poisontest(name, final_ep,
-                                       float(lr.poison_post.loss[c]),
-                                       float(lr.poison_post.acc[c]),
-                                       int(lr.poison_post.correct[c]),
-                                       int(lr.poison_post.count[c]))
-                if (self.is_poison_run and
-                        int(adv_slot_any[c]) >= 0):
-                    rec.add_triggertest(
-                        name, f"{name}_trigger", "", final_ep,
-                        float(lr.agent_trigger.loss[c]),
-                        float(lr.agent_trigger.acc[c]),
-                        int(lr.agent_trigger.correct[c]),
-                        int(lr.agent_trigger.count[c]))
+                self._record_local_rows(
+                    name, c, final_ep, locals_,
+                    not (final_seg_poisons and baseline), poisoning,
+                    int(adv_slot_any[c]) >= 0)
             if poisoning and not baseline:
                 rec.scale_temp_one_row.extend(
                     [epoch, round(float(delta_norms[c]), 4)])
+        self._record_round(epoch, final_ep, list(agent_names), adv_names,
+                           globals_, wv, alpha, times, robust or {})
 
-        rec.add_test("global", final_ep, float(globals_.clean.loss),
-                     float(globals_.clean.acc), int(globals_.clean.correct),
-                     int(globals_.clean.count))
+    def _record_train_rows(self, name, c: int, s: int, ep: int, n_e: int,
+                           metrics) -> None:
+        """Client `c`'s train rows of segment `s` (global epoch `ep`), one
+        per internal epoch."""
+        for e in range(n_e):
+            count = max(float(metrics.count[s, c, e]), 1.0)
+            self.recorder.add_train(
+                name, (ep - 1) * n_e + e + 1, ep, e + 1,
+                float(metrics.loss_sum[s, c, e]) / count,
+                100.0 * float(metrics.correct[s, c, e]) / count,
+                int(metrics.correct[s, c, e]), int(count))
+
+    def _record_local_rows(self, name, c: int, ep: int, ev, clean_row: bool,
+                           poisoning: bool, adversary: bool) -> None:
+        """Client `c`'s local-battery rows at epoch `ep` from `ev`
+        (LocalEvals): the clean row when `clean_row` (image_train.py:
+        148-155, :267-271); a poisoning client's pre-scale (unless
+        `baseline`, :157-164) and post-scale (:275-282) poison rows; an
+        adversary's own-trigger row, every global epoch (:285-295)."""
+        rec = self.recorder
+        if clean_row:
+            rec.add_test(name, ep, float(ev.clean.loss[c]),
+                         float(ev.clean.acc[c]), int(ev.clean.correct[c]),
+                         int(ev.clean.count[c]))
+        if poisoning and self.is_poison_run:
+            rows = ((ev.poison_post,) if bool(self.params["baseline"])
+                    else (ev.poison_pre, ev.poison_post))
+            for r in rows:
+                rec.add_poisontest(name, ep, float(r.loss[c]),
+                                   float(r.acc[c]), int(r.correct[c]),
+                                   int(r.count[c]))
+        if self.is_poison_run and adversary:
+            r = ev.agent_trigger
+            rec.add_triggertest(name, f"{name}_trigger", "", ep,
+                                float(r.loss[c]), float(r.acc[c]),
+                                int(r.correct[c]), int(r.count[c]))
+
+    def _record_round(self, epoch: int, ep: int, names, adv_names, globals_,
+                      wv, alpha, times, robust) -> None:
+        """The global battery's rows at epoch `ep`, the scale row's close,
+        the defense weights of a robust rule and the metrics.jsonl /
+        round_result.csv row keyed by `epoch`, then the save. `robust` may
+        carry more keys for the JSON row (the async extras)."""
+        params = self.params
+        rec = self.recorder
+        g = globals_
+        rec.add_test("global", ep, float(g.clean.loss), float(g.clean.acc),
+                     int(g.clean.correct), int(g.clean.count))
         if self.is_poison_run:
-            g = globals_
-            rec.add_poisontest("global", final_ep, float(g.poison.loss),
+            rec.add_poisontest("global", ep, float(g.poison.loss),
                                float(g.poison.acc), int(g.poison.correct),
                                int(g.poison.count))
-            rec.add_triggertest("global", "combine", "", final_ep,
+            rec.add_triggertest("global", "combine", "", ep,
                                 float(g.poison.loss), float(g.poison.acc),
                                 int(g.poison.correct), int(g.poison.count))
             if params.is_centralized_attack:
                 # gated on centralized_test_trigger (main.py:226)
-                names = [f"global_in_index_{j}_trigger"
-                         for j in range(self.engine.num_global_triggers)]
+                tnames = [f"global_in_index_{j}_trigger"
+                          for j in range(self.engine.num_global_triggers)]
             else:
-                names = [f"global_in_{a}_trigger"
-                         for a in params.adversary_list]
-            for j, tname in enumerate(names):
+                tnames = [f"global_in_{a}_trigger"
+                          for a in params.adversary_list]
+            for j, tname in enumerate(tnames):
                 rec.add_triggertest(
-                    "global", tname, "", final_ep,
+                    "global", tname, "", ep,
                     float(g.per_trigger.loss[j]), float(g.per_trigger.acc[j]),
                     int(g.per_trigger.correct[j]),
                     int(g.per_trigger.count[j]))
         if rec.scale_temp_one_row:
-            rec.scale_temp_one_row.append(round(float(globals_.clean.acc), 4))
-        if self.params.aggregation != cfg.AGGR_MEAN:
-            rec.add_weight_result(list(agent_names), wv.tolist(),
-                                  alpha.tolist(), epoch=epoch)
+            rec.scale_temp_one_row.append(round(float(g.clean.acc), 4))
+        if params.aggregation != cfg.AGGR_MEAN:
+            rec.add_weight_result(names,
+                                  np.asarray(wv)[:len(names)].tolist(),
+                                  np.asarray(alpha)[:len(names)].tolist(),
+                                  epoch=epoch)
         rec.add_round_json(
-            epoch=epoch, agents=[str(a) for a in agent_names],
+            epoch=epoch, agents=[str(a) for a in names],
             adversaries=[str(a) for a in adv_names],
             is_updated=self.last_is_updated,
-            global_acc=float(globals_.clean.acc),
-            global_loss=float(globals_.clean.loss),
-            backdoor_acc=(float(globals_.poison.acc)
-                          if self.is_poison_run else None),
-            **times, **(robust or {}))
+            global_acc=float(g.clean.acc), global_loss=float(g.clean.loss),
+            backdoor_acc=(float(g.poison.acc) if self.is_poison_run
+                          else None),
+            **times, **robust)
         rec.save(self.is_poison_run)
 
     # ------------------------------------------------------------------- run
@@ -949,13 +951,15 @@ class Experiment:
                                                True)))
         return self._ckpt_mgr
 
-    def save_model(self, epoch: int) -> None:
+    def save_model(self, epoch: int,
+                   extra_aux: Optional[Dict[str, Any]] = None) -> None:
         """Checkpoint the round's post-aggregation state: model_last, plus
         .epoch_N for save_on_epochs and .best whenever the global eval loss
         improves (helper.py:433-435). Every snapshot gets the full-state
         sidecar, then its manifest (covering the sidecar); a snapshot being
         overwritten is cloned to .prev until its replacement verifies;
-        retention GC runs last."""
+        retention GC runs last. `extra_aux` merges more keys into the
+        sidecar: the async engine's streaming state (``async_state``)."""
         params = self.params
         if not params["save_model"] or self.folder is None:
             return
@@ -989,6 +993,8 @@ class Experiment:
                                 self._prev_deltas.batch_stats.items()}}
         if self._sentinel is not None:
             aux["health"] = self._sentinel.state()
+        if extra_aux:
+            aux.update(extra_aux)
         for p in written:
             ckpt.save_checkpoint(p, self.global_vars, epoch, lr)
             ckpt.save_aux_state(p, aux)
@@ -1008,6 +1014,12 @@ class Experiment:
             return self._run_rounds(epochs)
 
     def _run_rounds(self, epochs: Optional[int] = None) -> Dict[str, Any]:
+        if self.params["mode"] == "async":
+            # the buffered-async engine owns the whole loop: cohort
+            # dispatch, arrivals, K-arrival merges, recording and
+            # checkpoints
+            from dba_mod_tpu_torch.fl.async_rounds import AsyncDriver
+            return AsyncDriver(self).run(epochs)
         last: Dict[str, Any] = {}
         end = epochs if epochs is not None else int(self.params["epochs"])
         for epoch in range(self.start_epoch, end + 1, self.interval):

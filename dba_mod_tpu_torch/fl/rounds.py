@@ -338,14 +338,17 @@ def aggregate(hyper: RoundHyper, global_vars: ModelVars, deltas: ModelVars,
               participant_ids: Optional[torch.Tensor] = None,
               num_samples: Optional[torch.Tensor] = None,
               nbt_deltas: Optional[torch.Tensor] = None,
-              mask: Optional[torch.Tensor] = None) -> AggregateResult:
+              mask: Optional[torch.Tensor] = None,
+              counted: Optional[torch.Tensor] = None) -> AggregateResult:
     """The configured rule over the stacked deltas (the branches of the JAX
     package's aggregate_fn). DP noise (diff_privacy) comes from `noise`
     when given, else from `gen`. `mask` ([C] float, optional): the survivor
     mask of the quarantine pass, routed to the rules' masked forms; None is
     the dense path. FoolsGold needs fg_state, fg_grads, fg_feature and
     participant_ids; RFA and masked FedAvg need num_samples (RFA also
-    nbt_deltas for the BN counters)."""
+    nbt_deltas for the BN counters). `counted` ([C] bool): the lanes masked
+    FedAvg's divisor counts, `num_samples > 0` when None; the async merge
+    counts every buffer lane, so its divisor is the occupied survivors."""
     leaf = next(iter(deltas.params.values()))
     sigma = hyper.sigma if hyper.diff_privacy else 0.0
     zeros = torch.zeros((leaf.shape[0],), dtype=torch.float32,
@@ -353,13 +356,16 @@ def aggregate(hyper: RoundHyper, global_vars: ModelVars, deltas: ModelVars,
     wv, alpha, calls, is_updated, new_fg = zeros, zeros, 1, True, fg_state
     rule = hyper.aggregation
     if rule == cfg.AGGR_MEAN:
+        if mask is not None and counted is None:
+            counted = num_samples > 0
+
         def fedavg(g, d, nz):
             if mask is None:
                 return agg.fedavg_update(g, d, hyper.eta, hyper.no_models,
                                          sigma, nz, gen)
             return agg.fedavg_update_masked(
-                g, d, hyper.eta, hyper.no_models, mask, num_samples > 0,
-                sigma, nz, gen)
+                g, d, hyper.eta, hyper.no_models, mask, counted, sigma, nz,
+                gen)
         new_vars = ModelVars(
             fedavg(global_vars.params, deltas.params,
                    noise.params if noise else None),

@@ -1,5 +1,5 @@
 """CLI of the PyTorch port — the same surface as dba_mod_tpu.main for the
-synchronous path:
+synchronous and the buffered-async (``mode: async``) engines:
 
     python -m dba_mod_tpu_torch.main --params configs/cifar_params.yaml
     python -m dba_mod_tpu_torch.main pretrain --params ... --epochs N
@@ -9,9 +9,10 @@ synchronous path:
 It runs on the card; ``--device cpu`` asks for the CPU. Asking for CUDA on
 a machine without a card raises. ``train`` exits 75 after a graceful stop
 (``graceful_shutdown: true`` and SIGTERM/SIGINT; relaunch with ``--resume
-auto``), and the watchdog's hard abort exits 76. ``report`` renders a run
-folder's forensics.jsonl (``forensics: true``) into a standalone HTML
-round-audit.
+auto``; an async run first flushes its partial buffer as one padded merge
+and checkpoints it), and the watchdog's hard abort exits 76. ``report``
+renders a run folder's forensics.jsonl (``forensics: true``) into a
+standalone HTML round-audit.
 """
 from __future__ import annotations
 

@@ -2,7 +2,11 @@
 (utils/csv_record.py), plus a JSONL metrics stream — the PyTorch port's own
 copy of dba_mod_tpu/utils/recorder.py: the same files, columns and rows.
 Its TensorBoard scalar mirror (flax's writer) is ROADMAP A17.
-`load_from_folder` continues a run folder's streams on an auto-resume.
+`load_from_folder` continues a run folder's streams on an auto-resume, and
+`reload_rows` at the row counts an async checkpoint recorded. An async run's
+rows carry its extras (``mode``, ``buffer_occupancy``, ``staleness_mean``,
+``staleness_max``, ``waves_dispatched``, ``arrivals_total``,
+``virtual_time``) in metrics.jsonl, keyed by merge step.
 
 Like the reference, `save()` rewrites every CSV each round
 (csv_record.py:21-59); every rewrite is atomic (tempfile in the run folder +
@@ -74,6 +78,12 @@ def canonical_run_outputs(folder) -> dict:
         if p.exists():
             out[name] = p.read_bytes()
     return out
+
+
+# the in-memory streams save() writes, in the order it writes them
+STREAMS = ("train_result", "test_result", "weight_result", "scale_result",
+           "batch_loss_result", "batch_distance_result", "round_result",
+           "posiontest_result", "poisontriggertest_result", "_jsonl_rows")
 
 
 class Recorder:
@@ -220,6 +230,24 @@ class Recorder:
                     if keep:
                         self._jsonl_rows.append(row)
         return len(self._jsonl_rows)
+
+    def row_counts(self) -> dict:
+        """Rows held in each stream (the async engine's sidecar records
+        them at every checkpoint)."""
+        return {name: len(getattr(self, name)) for name in STREAMS}
+
+    def reload_rows(self, counts: dict) -> None:
+        """Continue this run folder's streams at exactly `counts` rows
+        each (what :meth:`row_counts` gave when the resumed checkpoint was
+        taken): every file's rows reloaded, then each stream cut to its
+        count. For streams whose epoch column is not the checkpoint's step
+        (the async engine's per-client rows carry wave epochs), where the
+        epoch cut of :meth:`load_from_folder` does not apply."""
+        for name in STREAMS:
+            getattr(self, name).clear()
+        self.load_from_folder(2 ** 62)
+        for name, n in counts.items():
+            del getattr(self, name)[int(n):]
 
     # ------------------------------------------------------------------ save
     def _atomic_write(self, name: str, emit) -> None:

@@ -193,7 +193,6 @@ def test_fedavg_matches_jax():
 @pytest.mark.parametrize("override,item", [
     pytest.param({"fault_injection": True, "fault_host_loss_prob": 0.1},
                  "A18", id="override0-A18"),
-    pytest.param({"mode": "async"}, "A16", id="override3-A16"),
     pytest.param({"num_devices": 4}, "A18", id="override4-A18"),
     pytest.param({"pipeline_rounds": True}, "A17", id="override5-A17"),
     pytest.param({"sequential_debug": True}, "A19", id="override6-A19"),
@@ -216,12 +215,14 @@ def test_unported_knobs_raise(override, item):
     {"model_health_check": True, "health_norm_band": 3.0},
     {"resumed_model": "auto"}, {"graceful_shutdown": True},
     {"watchdog_soft_s": 60.0, "watchdog_hard_s": 600.0},
-    {"keep_last_n": 2}], ids=["A20-bf16", "A14-forensics", "A14-health",
-                              "A15-auto", "A15-graceful", "A15-watchdog",
-                              "A15-keep_last_n"])
+    {"keep_last_n": 2},
+    {"mode": "async", "buffer_k": 2, "staleness_weighting": "polynomial",
+     "merge_timeout_v": 1.0, "max_outstanding_waves": 3}],
+    ids=["A20-bf16", "A14-forensics", "A14-health", "A15-auto",
+         "A15-graceful", "A15-watchdog", "A15-keep_last_n", "A16-async"])
 def test_ported_knobs_pass(override):
-    """The knobs of ROADMAP A14, A15 and A20 are ported: check_ported
-    accepts them, as the reference's config does."""
+    """The knobs of ROADMAP A14, A15, A16 and A20 are ported:
+    check_ported accepts them, as the reference's config does."""
     import yaml
     raw = yaml.safe_load(open(SMOKE))
     raw.update(override)
