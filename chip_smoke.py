@@ -17,15 +17,17 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    yardstick, each also as device time from torch.profiler;
 4. the main path through the CLI, dba_mod_tpu_torch.main.main: pretrain one
    round of the full-width CIFAR workload (100 participants, 10 per round,
-   batch 64, 4 adversaries, synthetic CIFAR at its full size), then resume
+   batch 64, 4 adversaries, synthetic CIFAR at its full size, written once
+   as CIFAR batches that every CIFAR run of the script reads), then resume
    it by name and train two FedAvg rounds that both poison. The kernel's
    launch count over that run must equal the local steps it ran (derived
    from the recorded train_result.csv); the recorder files must exist and
    the accuracies and the saved global model must be finite;
-4b. the robust server on the same workload: two poisoned rounds each under
+4b. the robust server on the same workload: one poisoned round each under
    FoolsGold and RFA through the CLI, resumed from phase 4's pretrained
-   model. One fused launch per local step (FoolsGold's accumulators ride
-   in it), finite weight_result.csv rows, FoolsGold leaves the global BN
+   model, without the local battery. One fused launch per local step
+   (FoolsGold's accumulators ride in it), finite weight_result.csv rows,
+   FoolsGold leaves the global BN
    running stats bitwise the resumed model's, RFA's oracle count lies in
    [1, maxiter + 1]; each round's round_time and server aggregate time
    (FedAvg's too, in phase 4);
@@ -38,8 +40,9 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    global model finite;
 6. the Tiny-ImageNet path at full width (configs/tiny_params.yaml: the
    64-base ResNet-18, 11.28 M parameters, on the synthetic set of the full
-   100,000 / 10,000 size, made once and read back from its npz cache):
-   pretrain one round, resume it by name, two poisoned FedAvg rounds, then
+   100,000 / 10,000 size, made once — in a process started beside phases
+   4-5 — and read back from its npz cache):
+   pretrain one round, resume it by name, one poisoned FedAvg round, then
    one poisoned FoolsGold round from the same pretrain. One fused launch
    per local step; round_time, the engine's train / aggregate / local and
    global battery seconds and the peak device memory of each run;
@@ -61,9 +64,9 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    CIFAR FoolsGold config with ``forensics``, ``model_health_check`` (band
    3, armed after one merge), ``graceful_shutdown``, ``keep_last_n: 2``,
    no local battery and three poisoned rounds, under deterministic
-   kernels, run once
-   uninterrupted and once through dba_mod_tpu_torch.crash_smoke's launcher
-   (SIGTERM once round 1 commits → exit 75 → ``--resume auto``). The two
+   kernels, run uninterrupted and, side by side with it on the card,
+   through dba_mod_tpu_torch.crash_smoke's launcher (SIGTERM once round 1
+   commits → exit 75 → ``--resume auto``). The two
    final models are bitwise equal, their round_result.csv (less the clock
    columns), forensics.jsonl and client_forensics.csv rows equal, every
    snapshot left verifies, ``main report`` writes the HTML audit, every
@@ -78,18 +81,36 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    keys); (b) full-width CIFAR async through the CLI with bench.py's
    --async knobs (K = 5, polynomial staleness weighting 0.5, arrival rate 2,
    jitter 0.5, straggler tail 0.1 x 5), model-only resumed from phase 4's
-   pretrain, four merges with poisoned waves: one fused launch per local
+   pretrain, two merges of one poisoned wave: one fused launch per local
    step of every dispatched wave; per merge round_time, dispatch_time,
    occupancy and staleness; waves dispatched, the outstanding-waves
    high-water mark, the sidecar's bytes and save seconds, peak memory and
    updates absorbed per second; (c) an MNIST async run at
    configs/async_smoke_params.yaml's knobs under deterministic kernels,
-   straight and SIGKILLed once merge 3 committed then ``--resume auto``:
+   straight and, side by side, SIGKILLed once merge 3 committed then
+   ``--resume auto``:
    bitwise equal final models, equal metrics rows and CSVs.
+11. telemetry and round overlap: (a) phase 4's CIFAR config with
+   ``telemetry`` and ``tensorboard``, two poisoned rounds from phase 4's
+   pretrain through the CLI: trace.json with every phase span, one
+   telemetry.jsonl row a round, the tb/ event file, no kernel library built
+   after warm-up, one fused launch per local step, the per-phase span
+   seconds beside phase 4's and the summary table; (b) three poisoned
+   full-width CIFAR rounds through the CLI in fresh deterministic
+   processes, serial and with ``overlap_eval`` + ``pipeline_rounds``: every
+   recorded output (wall clocks aside) and the final checkpoint
+   byte-identical, one fused launch per local step, each run's seconds a
+   round and in all, the hidden eval seconds and how many finalizes
+   returned while the card still ran the next round; (c) in phase 10a's
+   fresh deterministic process, the MNIST async run at async_smoke's knobs,
+   serial and with the merge pipeline: bitwise equal, pipelined_merges and
+   hidden_finalize_s; (d) ``profile_dir`` on a two-round MNIST run: the
+   torch.profiler trace of round 2 exists and holds kernel events.
 
 Phase 3 also runs (as 3b) at the Tiny-ImageNet size (FoolsGold off and on)
 and at the LOAN size, so the kernels line has five rows. The CIFAR row's
-launches are phase 4's plus phase 10b's.
+launches are phase 4's plus phase 10b's, 11a's and both 11b runs'. The
+script prints its own total seconds.
 
 The last lines are a JSON object with the kernels' numbers, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}. Exits
@@ -364,6 +385,37 @@ def _watch_aggregate(record: list):
     return lambda: setattr(rounds.RoundEngine, "aggregate_fn", real)
 
 
+def write_cifar_batches(raw: dict, root: Path) -> float:
+    """The synthetic CIFAR set that `raw` with ``synthetic_data: true``
+    makes, written once as the reference's python-pickle batches under
+    root/cifar-10-batches-py, which load_cifar10 reads back as the same
+    arrays: the script's CIFAR runs load it instead of drawing it anew.
+    Returns the seconds it took."""
+    import pickle
+    import numpy as np
+    from dba_mod_tpu_torch.data.datasets import synthetic_image_dataset
+
+    t0 = time.perf_counter()
+    d = synthetic_image_dataset(
+        "cifar", train_size=int(raw.get("synthetic_train_size", 0) or 0),
+        test_size=int(raw.get("synthetic_test_size", 0) or 0),
+        seed=int(raw.get("random_seed", 1)),
+        noise_std=float(raw.get("synthetic_noise_std", 25.0)))
+    out = root / "cifar-10-batches-py"
+    out.mkdir(parents=True)
+
+    def dump(name, x, y):
+        with open(out / name, "wb") as f:
+            pickle.dump({b"data": x.transpose(0, 3, 1, 2).reshape(len(x), -1),
+                         b"labels": y.tolist()}, f)
+
+    for i, rows in enumerate(np.array_split(np.arange(len(d.train_labels)),
+                                            5)):
+        dump(f"data_batch_{i + 1}", d.train_images[rows], d.train_labels[rows])
+    dump("test_batch", d.test_images, d.test_labels)
+    return time.perf_counter() - t0
+
+
 def run_main_path(tmp: Path) -> dict:
     """Phase 4 (see the module docstring); also the float32 phase seconds
     and peak memory that phase 8 compares bf16 against."""
@@ -376,7 +428,11 @@ def run_main_path(tmp: Path) -> dict:
     from dba_mod_tpu_torch.ops import fused_update as fu
 
     raw = yaml.safe_load((REPO / "configs" / "cifar_params.yaml").read_text())
-    raw.update(synthetic_data=True, run_dir=str(tmp / "runs"),
+    # the synthetic set at its full size, written once as CIFAR batches
+    # that every CIFAR config of this script (derived from this one) reads
+    data_s = write_cifar_batches(raw, tmp / "cifar_data")
+    raw.update(synthetic_data=False, data_dir=str(tmp / "cifar_data"),
+               run_dir=str(tmp / "runs"),
                checkpoint_dir=str(tmp / "ckpt"), save_model=True,
                save_on_epochs=[2, 3],
                **{"0_poison_epochs": [2], "1_poison_epochs": [3]})
@@ -457,7 +513,9 @@ def run_main_path(tmp: Path) -> dict:
                           if k.endswith("running_var"))
     with open(folder / "round_result.csv", newline="") as f:
         round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
-    log(f"phase 4: pretrain {pretrain_s:.1f}s; resumed train of 2 poisoned "
+    log(f"phase 4: synthetic CIFAR set written as CIFAR batches in "
+        f"{data_s:.1f}s; pretrain {pretrain_s:.1f}s; resumed train of 2 "
+        f"poisoned "
         f"rounds {train_s:.1f}s; round_time per round {round_s}; FedAvg "
         f"aggregate {[round(a['seconds'], 4) for a in aggs]}s; "
         f"{launches} fused launches = {want} local steps; final "
@@ -481,11 +539,12 @@ def run_main_path(tmp: Path) -> dict:
 
 # --------------------------------------------------------------- phase 4b
 def run_robust_rounds(tmp: Path) -> dict:
-    """Two poisoned full-width CIFAR rounds under FoolsGold and two under
+    """One poisoned full-width CIFAR round under FoolsGold and one under
     RFA through the CLI, resumed from phase 4's pretrained model, with
-    phase 4's config changed only in aggregation_methods and the run
-    folder. The first round's server aggregate carries the process's
-    first use of the rule's kernels; the second shows the steady state."""
+    phase 4's config changed only in aggregation_methods, the run folder
+    and no local battery (phase 4 runs it; it is half a round). Each
+    round's server aggregate carries the process's first use of the rule's
+    kernels (phase 4c times the steady state)."""
     import torch
     import yaml
     from dba_mod_tpu_torch import checkpoint as ckpt
@@ -501,7 +560,7 @@ def run_robust_rounds(tmp: Path) -> dict:
         tmp / "ckpt" / "cifar_pretrain" / "smoke"), like)
     out = {}
     for rule in ("foolsgold", "geom_median"):
-        raw = dict(base, aggregation_methods=rule,
+        raw = dict(base, aggregation_methods=rule, local_eval=False,
                    run_dir=str(tmp / f"runs_{rule}"))
         cfg_path = tmp / f"cifar_{rule}.yaml"
         cfg_path.write_text(yaml.safe_dump(raw))
@@ -510,8 +569,8 @@ def run_robust_rounds(tmp: Path) -> dict:
         fu.fused_step_update.launches = 0
         try:
             if cli_main(["train", "--params", str(cfg_path), "--resume",
-                         "cifar_pretrain/smoke", "--epochs", "3"]) != 0:
-                raise AssertionError(f"{rule} rounds failed")
+                         "cifar_pretrain/smoke", "--epochs", "2"]) != 0:
+                raise AssertionError(f"{rule} round failed")
             torch.cuda.synchronize()
         finally:
             undo()
@@ -526,12 +585,12 @@ def run_robust_rounds(tmp: Path) -> dict:
         rows = [r for r in csv.reader(open(folder / "weight_result.csv"))]
         weights = [[float(x) for x in r] for i, r in enumerate(rows)
                    if i % 3]   # names, wv, alpha per round
-        if len(rows) != 6 or not all(math.isfinite(x) for r in weights
+        if len(rows) != 3 or not all(math.isfinite(x) for r in weights
                                      for x in r):
             raise AssertionError(f"{rule}: weight_result rows {rows}")
         recs = [json.loads(l) for l in (folder / "metrics.jsonl")
                 .read_text().splitlines() if l.strip()]
-        if [r["epoch"] for r in recs] != [2, 3] or not all(
+        if [r["epoch"] for r in recs] != [2] or not all(
                 r["adversaries"] for r in recs):
             raise AssertionError(f"{rule}: rounds {recs}")
         row = recs[-1]
@@ -555,7 +614,7 @@ def run_robust_rounds(tmp: Path) -> dict:
                      "aggregate_s": agg_s, "oracle_calls": calls,
                      "wv": weights[-2], "global_acc": row["global_acc"],
                      "backdoor_acc": row["backdoor_acc"]}
-        log(f"phase 4b: {rule}, 2 poisoned CIFAR rounds: round_time "
+        log(f"phase 4b: {rule}, 1 poisoned CIFAR round: round_time "
             f"{round_s}, aggregate {[round(s, 4) for s in agg_s]}s, "
             f"{launches} fused launches = {steps} local steps x 1, oracle "
             f"calls {calls}, last wv {[round(w, 4) for w in weights[-2]]}, "
@@ -624,8 +683,10 @@ def time_aggregation_rules(dev) -> dict:
 # ---------------------------------------------------------------- phase 6
 def _watch_phases(record: dict):
     """Wrap the round engine's phases (train, aggregate, local and global
-    battery) so each call adds its device-synced seconds to record[name];
-    returns the undo function. The syncs add a few host waits a round."""
+    battery) so each call adds its device-synced seconds to record[name],
+    and to record[name + "_tail"] the seconds the card still ran after the
+    call returned (how far the host ran ahead of the card); returns the
+    undo function. The syncs add a few host waits a round."""
     import torch
     from dba_mod_tpu_torch.fl import rounds
     names = ("train_fn", "aggregate_fn", "local_evals", "global_evals")
@@ -636,8 +697,11 @@ def _watch_phases(record: dict):
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = real[name](self, *args, **kw)
+            t_host = time.perf_counter()
             torch.cuda.synchronize()
-            record.setdefault(name, []).append(time.perf_counter() - t)
+            t_end = time.perf_counter()
+            record.setdefault(name, []).append(t_end - t)
+            record.setdefault(f"{name}_tail", []).append(t_end - t_host)
             return res
         return call
 
@@ -707,23 +771,16 @@ def _train_rounds(cfg_path: Path, resume: str, epochs: int, run_dir: Path,
                 for r in rows]}
 
 
-def run_tiny_path(tmp: Path) -> dict:
-    """The Tiny-ImageNet main path at full width: configs/tiny_params.yaml
-    (full 64-base ResNet-18, 100 participants, 10 per round, batch 64,
-    Dirichlet 0.01, 4 adversaries) on the synthetic set of the full
-    100,000 / 10,000 size. The set is made once with the port's generator
-    and written as the tiny-imagenet-200.npz cache that load_tiny_imagenet
-    reads, so the three CLI runs load it instead of drawing 1.2 G normal
-    values each. Pretrain one round, resume it by name, two FedAvg rounds
-    that both poison, then one FoolsGold round from the same pretrain."""
+def write_tiny_data(tmp: Path) -> int:
+    """Phase 6's data, in the process main() starts beside phases 4-5 (it
+    is host work): the synthetic Tiny-ImageNet set of the full 100,000 /
+    10,000 size, made once with the port's generator and written as the
+    tiny-imagenet-200.npz cache that load_tiny_imagenet reads, so the CLI
+    runs load it instead of drawing 1.2 G normal values each. Prints one
+    JSON line: the set's sizes and seconds."""
     import numpy as np
-    import torch
     import yaml
-    from dba_mod_tpu_torch import checkpoint as ckpt
-    from dba_mod_tpu_torch.config import Params
     from dba_mod_tpu_torch.data.datasets import synthetic_image_dataset
-    from dba_mod_tpu_torch.main import main as cli_main
-    from dba_mod_tpu_torch.models import build_model
 
     raw = yaml.safe_load((REPO / "configs" / "tiny_params.yaml").read_text())
     t0 = time.perf_counter()
@@ -733,9 +790,41 @@ def run_tiny_path(tmp: Path) -> dict:
     np.savez(tmp / "tiny_data" / "tiny-imagenet-200.npz",
              train_x=data.train_images, train_y=data.train_labels,
              test_x=data.test_images, test_y=data.test_labels)
-    n_train, n_test = len(data.train_labels), len(data.test_labels)
-    del data
-    data_s = time.perf_counter() - t0
+    print(json.dumps({"n_train": len(data.train_labels),
+                      "n_test": len(data.test_labels),
+                      "s": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
+def start_tiny_data(tmp: Path) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"),
+                             "tiny-data", str(tmp)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def run_tiny_path(tmp: Path, data_proc: subprocess.Popen) -> dict:
+    """The Tiny-ImageNet main path at full width: configs/tiny_params.yaml
+    (full 64-base ResNet-18, 100 participants, 10 per round, batch 64,
+    Dirichlet 0.01, 4 adversaries) on the synthetic set of the full
+    100,000 / 10,000 size that `data_proc` (write_tiny_data) writes.
+    Pretrain one round, resume it by name, one poisoned FedAvg round, then
+    one poisoned FoolsGold round from the same pretrain."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.models import build_model
+
+    raw = yaml.safe_load((REPO / "configs" / "tiny_params.yaml").read_text())
+    t0 = time.perf_counter()
+    out, err = data_proc.communicate(timeout=900)
+    if data_proc.returncode != 0:
+        raise AssertionError(f"synthetic Tiny set failed:\n{err[-4000:]}")
+    made = json.loads(out.strip().splitlines()[-1])
+    n_train, n_test, data_s = made["n_train"], made["n_test"], made["s"]
+    log(f"phase 6: waited {time.perf_counter() - t0:.1f}s for the "
+        f"synthetic Tiny set, made beside phases 3-5 in {data_s:.1f}s")
     if (n_train, n_test) != (100000, 10000):
         raise AssertionError(f"synthetic Tiny set of {n_train}/{n_test}")
     raw.update(data_dir=str(tmp / "tiny_data"), run_dir=str(tmp / "runs_tiny"),
@@ -751,14 +840,14 @@ def run_tiny_path(tmp: Path) -> dict:
         raise AssertionError("tiny pretrain failed")
     pretrain_s = time.perf_counter() - t0
     b = int(raw["batch_size"])
-    fedavg = _train_rounds(cfg_path, "tiny_pretrain/smoke", 3,
-                           tmp / "runs_tiny", b, [2, 3], "tiny FedAvg")
+    fedavg = _train_rounds(cfg_path, "tiny_pretrain/smoke", 2,
+                           tmp / "runs_tiny", b, [2], "tiny FedAvg")
     like = build_model(Params.from_dict(raw)).init_vars(
         0, torch.device("cpu"))
     gv, epoch, _ = ckpt.load_checkpoint(fedavg["folder"] / "model_last.pt.tar",
                                         like)
     ok, why = ckpt.verify_checkpoint(fedavg["folder"] / "model_last.pt.tar")
-    if not ok or epoch != 3 or not all(
+    if not ok or epoch != 2 or not all(
             bool(torch.isfinite(v).all()) for v in gv.params.values()):
         raise AssertionError(f"tiny saved model: epoch {epoch}, {why}")
     # FedAvg averages the BN running stats with the ×100 adversary's delta,
@@ -1052,8 +1141,37 @@ def _round_rows(folder: Path) -> list:
                 for row in csv.DictReader(f)]
 
 
+def _beside(cfg_path: Path, args: list, log_file: Path, timeout: float,
+            work):
+    """Run `main train` on `cfg_path` (an uninterrupted twin) in a process
+    beside `work()` (the interrupted run it is held against): returns
+    work()'s result and the twin's wall seconds. The twin is killed if
+    anything fails."""
+    import threading
+    from dba_mod_tpu_torch import crash_smoke
+    t0 = time.perf_counter()
+    proc = crash_smoke.launch(cfg_path, "cuda", args, log_file)
+    ended: list = []
+    waiter = threading.Thread(
+        target=lambda: (proc.wait(), ended.append(time.perf_counter())),
+        daemon=True)
+    waiter.start()
+    try:
+        out = work()
+        waiter.join(timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if not ended or proc.returncode != 0:
+        raise AssertionError(f"uninterrupted run exited {proc.returncode}:"
+                             f"\n" + log_file.read_text()[-4000:])
+    return out, ended[0] - t0
+
+
 def run_crash_resume(tmp: Path) -> dict:
-    """Phase 9 (see the module docstring)."""
+    """Phase 9 (see the module docstring); the uninterrupted run goes
+    beside the interrupted one."""
     import torch
     import yaml
     from dba_mod_tpu_torch import checkpoint as ckpt
@@ -1073,36 +1191,26 @@ def run_crash_resume(tmp: Path) -> dict:
                 resumed_model_name="cifar_pretrain/smoke",
                 **{"0_poison_epochs": [2, 4], "1_poison_epochs": [3]})
     args = ["--epochs", "4", "--deterministic"]
-    runs = {}
+    cfgs, logs = {}, {}
     for name in ("straight", "resumed"):
-        raw = dict(base, run_dir=str(tmp / f"runs_crash_{name}"))
-        cfg_path = tmp / f"cifar_crash_{name}.yaml"
-        cfg_path.write_text(yaml.safe_dump(raw))
-        t0 = time.perf_counter()
-        if name == "straight":
-            run_dir = Path(raw["run_dir"])
-            run_dir.mkdir()
-            log_file = tmp / f"runs_crash_{name}.crash_smoke.log"
-            proc = crash_smoke.launch(cfg_path, "cuda", args, log_file)
-            try:
-                rc = proc.wait(timeout=900)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-                raise
-            if rc != 0:
-                raise AssertionError(f"uninterrupted run exited {rc}:\n"
-                                     + log_file.read_text()[-4000:])
-            (folder,) = crash_smoke.run_folders(run_dir, base["type"])
-            info = {}
-        else:
-            info = crash_smoke.interrupted_run(cfg_path, "cuda", 1, args,
-                                               timeout=900)
-            folder = info.pop("folder")
-            log_file = tmp / f"runs_crash_{name}.crash_smoke.log"
-        runs[name] = dict(info, folder=folder, log=log_file,
-                          seconds=time.perf_counter() - t0)
-
+        cfgs[name] = tmp / f"cifar_crash_{name}.yaml"
+        cfgs[name].write_text(yaml.safe_dump(
+            dict(base, run_dir=str(tmp / f"runs_crash_{name}"))))
+        logs[name] = tmp / f"runs_crash_{name}.crash_smoke.log"
+    run_dir = tmp / "runs_crash_straight"
+    run_dir.mkdir()
+    t0 = time.perf_counter()
+    info, straight_s = _beside(
+        cfgs["straight"], args, logs["straight"], 900,
+        lambda: crash_smoke.interrupted_run(cfgs["resumed"], "cuda", 1,
+                                            args, timeout=900))
+    resumed_s = time.perf_counter() - t0
+    resumed_folder = info.pop("folder")
+    (straight_folder,) = crash_smoke.run_folders(run_dir, base["type"])
+    runs = {"straight": {"folder": straight_folder, "log": logs["straight"],
+                         "seconds": straight_s},
+            "resumed": dict(info, folder=resumed_folder,
+                            log=logs["resumed"], seconds=resumed_s)}
     a, b = runs["straight"], runs["resumed"]
     like = build_model(Params.from_dict(base)).init_vars(
         0, torch.device("cpu"))
@@ -1165,7 +1273,8 @@ def run_crash_resume(tmp: Path) -> dict:
         round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
     decisions = _health_lines(a["log"])
     log(f"phase 9: CIFAR FoolsGold with forensics + sentinel, 3 poisoned "
-        f"rounds: uninterrupted {a['seconds']:.1f}s (round_time {round_s}); "
+        f"rounds: uninterrupted {a['seconds']:.1f}s beside the interrupted "
+        f"run (round_time {round_s}); "
         f"interrupted: SIGTERM after {b['signalled_after_rounds']} "
         f"committed round(s), exit 75 with epochs {b['stopped_epochs']} "
         f"recorded ({b['first_run_s']:.1f}s), --resume auto to "
@@ -1249,6 +1358,7 @@ def async_keystone(tmp: Path) -> int:
                     if want.get(k) != got.get(k))
     rows = _metrics_rows(b.folder, drop=())
     print(json.dumps({
+        "phase": "10a",
         "model_bitwise_equal": not unequal, "unequal_leaves": unequal[:5],
         "outputs_differ": differ, "merges": len(rows),
         "occupancy": [r["buffer_occupancy"] for r in rows],
@@ -1323,8 +1433,8 @@ def run_async_cifar(tmp: Path) -> dict:
     """Phase 10b: the full-width CIFAR buffered-async path through the CLI,
     resumed from phase 4's pretrain (no streaming sidecar: a model-only
     resume, so the stream starts at version = the pretrain's epoch and
-    wave = version·K // C), four merges, poisoning on every wave epoch it
-    reaches."""
+    wave = version·K // C), two merges (one wave), poisoning on every wave
+    epoch it reaches."""
     import torch
     import yaml
     from dba_mod_tpu_torch import checkpoint as ckpt
@@ -1343,7 +1453,7 @@ def run_async_cifar(tmp: Path) -> dict:
     raw.update(mode="async", buffer_k=K, staleness_weighting="polynomial",
                staleness_alpha=0.5, arrival_rate=2.0, arrival_jitter=0.5,
                straggler_tail=0.1, straggler_factor=5.0,
-               async_steps=pre_epoch + 4, save_model=True, save_on_epochs=[],
+               async_steps=pre_epoch + 2, save_model=True, save_on_epochs=[],
                run_dir=str(tmp / "runs_async"),
                **{"0_poison_epochs": poison, "1_poison_epochs": poison})
     cfg_path = tmp / "cifar_async.yaml"
@@ -1368,7 +1478,7 @@ def run_async_cifar(tmp: Path) -> dict:
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     (folder,) = list((tmp / "runs_async").iterdir())
     rows = _metrics_rows(folder, drop=())
-    want = list(range(pre_epoch + 1, pre_epoch + 5))
+    want = list(range(pre_epoch + 1, pre_epoch + 3))
     if [r["epoch"] for r in rows] != want:
         raise AssertionError(f"async merges recorded "
                              f"{[r['epoch'] for r in rows]}, expected {want}")
@@ -1428,7 +1538,7 @@ def run_async_cifar(tmp: Path) -> dict:
                for r in rows],
            "min_running_var": min_var}
     log(f"phase 10b: CIFAR async (K={K}, polynomial 0.5, bench.py's "
-        f"arrival knobs), 4 merges after a model-only resume at version "
+        f"arrival knobs), 2 merges after a model-only resume at version "
         f"{pre_epoch}: per merge (round_time s, dispatch_time s, occupancy, "
         f"staleness mean/max, adversaries) "
         + "; ".join(f"{m['round_time']:.3f}, {m['dispatch_time']:.3f}, "
@@ -1466,35 +1576,24 @@ def run_async_kill_resume(tmp: Path) -> dict:
         (REPO / "configs" / "async_smoke_params.yaml").read_text()),
         async_steps=12)
     args = ["--deterministic"]
-    runs = {}
+    cfgs, logs = {}, {}
     for name in ("straight", "killed"):
-        raw = dict(base, run_dir=str(tmp / f"runs_async_{name}"))
-        cfg_path = tmp / f"async_{name}.yaml"
-        cfg_path.write_text(yaml.safe_dump(raw))
-        log_file = tmp / f"runs_async_{name}.crash_smoke.log"
-        t0 = time.perf_counter()
-        if name == "straight":
-            run_dir = Path(raw["run_dir"])
-            run_dir.mkdir()
-            proc = crash_smoke.launch(cfg_path, "cuda", args, log_file)
-            try:
-                rc = proc.wait(timeout=600)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait()
-                raise
-            if rc != 0:
-                raise AssertionError(f"straight async run exited {rc}:\n"
-                                     + log_file.read_text()[-4000:])
-            (folder,) = crash_smoke.run_folders(run_dir, base["type"])
-            info = {}
-        else:
-            info = crash_smoke.interrupted_run(cfg_path, "cuda", 3, args,
-                                               timeout=600,
-                                               sig=signal.SIGKILL)
-            folder = info.pop("folder")
-        runs[name] = dict(info, folder=folder, log=log_file,
-                          seconds=time.perf_counter() - t0)
+        cfgs[name] = tmp / f"async_{name}.yaml"
+        cfgs[name].write_text(yaml.safe_dump(
+            dict(base, run_dir=str(tmp / f"runs_async_{name}"))))
+        logs[name] = tmp / f"runs_async_{name}.crash_smoke.log"
+    run_dir = tmp / "runs_async_straight"
+    run_dir.mkdir()
+    info, straight_s = _beside(
+        cfgs["straight"], args, logs["straight"], 600,
+        lambda: crash_smoke.interrupted_run(cfgs["killed"], "cuda", 3, args,
+                                            timeout=600,
+                                            sig=signal.SIGKILL))
+    killed_folder = info.pop("folder")
+    (straight_folder,) = crash_smoke.run_folders(run_dir, base["type"])
+    runs = {"straight": {"folder": straight_folder, "log": logs["straight"],
+                         "seconds": straight_s},
+            "killed": dict(info, folder=killed_folder, log=logs["killed"])}
     a, b = runs["straight"], runs["killed"]
     like = build_model(Params.from_dict(base)).init_vars(
         0, torch.device("cpu"))
@@ -1515,7 +1614,8 @@ def run_async_kill_resume(tmp: Path) -> dict:
             raise AssertionError(f"{name} differs after the resume")
     launches = {n: _launches_logged(r["log"]) for n, r in runs.items()}
     log(f"phase 10c: MNIST async (async_smoke knobs, 12 merges, "
-        f"deterministic): straight {a['seconds']:.1f}s; SIGKILL once merge "
+        f"deterministic): straight {a['seconds']:.1f}s beside the killed "
+        f"run; SIGKILL once merge "
         f"3 committed ({b['signalled_after_rounds']} merge rows recorded "
         f"then, {b['stopped_epochs']} on disk after the kill; "
         f"{b['first_run_s']:.1f}s), --resume auto from "
@@ -1530,16 +1630,27 @@ def run_async_kill_resume(tmp: Path) -> dict:
             "launches": launches}
 
 
+def _json_lines(stdout: str) -> dict:
+    """The JSON result lines of a fresh-process phase, by their "phase"."""
+    out = {}
+    for line in stdout.splitlines():
+        if line.startswith("{"):
+            row = json.loads(line)
+            out[row.get("phase")] = row
+    return out
+
+
 def run_async(tmp: Path) -> dict:
-    """Phase 10: the buffered-async engine (10a in a fresh process, 10b,
-    10c)."""
+    """Phase 10: the buffered-async engine (10a in a fresh process, which
+    then runs phase 11c too; 10b, 10c)."""
     out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
-                          "async-keystone", str(tmp)], capture_output=True,
-                         text=True, timeout=600)
+                          "deterministic-mnist", str(tmp)],
+                         capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
-        raise AssertionError(f"async keystone failed:\n{out.stdout[-4000:]}"
-                             f"\n{out.stderr[-4000:]}")
-    ks = json.loads(out.stdout.strip().splitlines()[-1])
+        raise AssertionError(f"async keystone / 11c failed:\n"
+                             f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    results = _json_lines(out.stdout)
+    ks = results["10a"]
     log(f"phase 10a: MNIST poisoned smoke run with the local battery, "
         f"async at buffer_k = no_models against sync, deterministic "
         f"kernels: model bitwise equal {ks['model_bitwise_equal']}, "
@@ -1557,10 +1668,300 @@ def run_async(tmp: Path) -> dict:
     cifar = run_async_cifar(tmp)
     kill = run_async_kill_resume(tmp)
     return {"keystone": ks, "cifar": cifar, "kill_resume": kill,
-            "launches": cifar["launches"]}
+            "launches": cifar["launches"], "11c": results["11c"]}
+
+
+# --------------------------------------------------------------- phase 11
+TEL_SPANS = ("round/dispatch", "round/train", "round/aggregate", "eval/local",
+             "eval/global", "round/finalize", "round/checkpoint")
+
+
+def run_telemetry_cifar(tmp: Path, f32: dict) -> dict:
+    """Phase 11a: phase 4's CIFAR config with telemetry and tensorboard,
+    resumed from phase 4's pretrain, two poisoned FedAvg rounds through the
+    CLI (in this process): the trace, one telemetry.jsonl row a round and
+    the TensorBoard events exist, every phase span is there, no kernel
+    library was built after warm-up, one fused launch per local step. The
+    per-phase span seconds print beside phase 4's (device-synced
+    _watch_phases) numbers."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.main import main as cli_main
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    raw = dict(yaml.safe_load((tmp / "cifar_smoke.yaml").read_text()),
+               telemetry=True, tensorboard=True,
+               run_dir=str(tmp / "runs_tel"))
+    cfg_path = tmp / "cifar_telemetry.yaml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    fu.fused_step_update.launches = 0
+    t0 = time.perf_counter()
+    if cli_main(["train", "--params", str(cfg_path), "--resume",
+                 "cifar_pretrain/smoke", "--epochs", "3"]) != 0:
+        raise AssertionError("telemetry rounds failed")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fu.fused_step_update.launches
+    (folder,) = list((tmp / "runs_tel").iterdir())
+    steps = expected_launches(folder / "train_result.csv",
+                              int(raw["batch_size"]))
+    if launches != steps or launches == 0:
+        raise AssertionError(f"11a: fused kernel launched {launches} times, "
+                             f"the rounds ran {steps} local steps")
+    trace = json.loads((folder / "trace.json").read_text())
+    names = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+    missing = sorted(set(TEL_SPANS + ("engine/build", "engine/warm_buckets"))
+                     - names)
+    rows = [json.loads(l) for l in
+            (folder / "telemetry.jsonl").read_text().splitlines() if l]
+    events = list((folder / "tb").glob("events.out.tfevents.*"))
+    late = rows[-1]["counters"].get("cuda/kernel_builds_after_warmup")
+    if missing or [r["epoch"] for r in rows] != [2, 3] or late != 0 \
+            or not events:
+        raise AssertionError(f"11a: spans missing {missing}, telemetry rows "
+                             f"{[r['epoch'] for r in rows]}, kernel builds "
+                             f"after warm-up {late}, tb events {events}")
+    spans = {n: [round(r["histograms"].get(f"span/{n}", {}).get("sum", 0.0),
+                       4) for r in rows] for n in TEL_SPANS}
+    mem = rows[-1]["gauges"]
+    with open(folder / "round_result.csv", newline="") as f:
+        round_s = [float(r["round_time"]) for r in csv.DictReader(f)]
+    out = {"run_s": run_s, "launches": launches, "round_s": round_s,
+           "span_s": spans, "peak_mb": mem.get("memory/peak_bytes_in_use",
+                                                0) / 1e6,
+           "kernel_builds": rows[-1]["counters"].get("cuda/kernel_builds"),
+           "tb_event_bytes": sum(p.stat().st_size for p in events)}
+    log(f"phase 11a: CIFAR, 2 poisoned rounds with telemetry + tensorboard "
+        f"in {run_s:.1f}s: round_time {round_s}; span seconds per round "
+        f"{spans} (phase 4, device-synced: {f32['phase_s']}); "
+        f"{launches} fused launches = {steps} local steps; kernel builds "
+        f"{out['kernel_builds']}, after warm-up {late}; peak "
+        f"{out['peak_mb']:.0f} MB; tb events {out['tb_event_bytes']} B")
+    return out
+
+
+_OVERLAP_LINE = "overlap: "
+
+
+def _overlap_logged(log_file: Path) -> dict:
+    """The overlap clocks a `main train` process logged, as numbers."""
+    for line in log_file.read_text().splitlines():
+        if _OVERLAP_LINE in line:
+            nums = [float(w.rstrip(",")) for w in
+                    line.split(_OVERLAP_LINE, 1)[1].split()
+                    if w.rstrip(",").replace(".", "", 1).isdigit()]
+            return dict(zip(("rounds", "hidden_eval_s", "eval_wait_s",
+                             "finalized_ahead"), nums))
+    return {}
+
+
+def run_overlap_cifar(tmp: Path) -> dict:
+    """Phase 11b: three poisoned FedAvg rounds at full CIFAR width from
+    phase 4's pretrain through the CLI, each run in a fresh process under
+    deterministic kernels: serial, then with overlap_eval and
+    pipeline_rounds. Every recorded output (wall clocks aside) and the
+    final checkpoint must be byte-identical; one fused launch per local
+    step in each."""
+    import yaml
+    from dba_mod_tpu_torch import crash_smoke
+    from dba_mod_tpu_torch.utils.recorder import canonical_run_outputs
+
+    base = dict(yaml.safe_load((tmp / "cifar_smoke.yaml").read_text()),
+                save_on_epochs=[4],
+                **{"0_poison_epochs": [2, 4], "1_poison_epochs": [3]})
+    runs = {}
+    for name, knobs in (("serial", {}),
+                        ("overlap", dict(overlap_eval=True,
+                                         pipeline_rounds=True))):
+        run_dir = tmp / f"runs_ovl_{name}"
+        run_dir.mkdir()
+        cfg_path = tmp / f"cifar_overlap_{name}.yaml"
+        cfg_path.write_text(yaml.safe_dump(dict(base, run_dir=str(run_dir),
+                                                **knobs)))
+        log_file = tmp / f"overlap_{name}.log"
+        t0 = time.perf_counter()
+        proc = crash_smoke.launch(
+            cfg_path, "cuda", ["--deterministic", "--resume",
+                               "cifar_pretrain/smoke", "--epochs", "4"],
+            log_file)
+        try:
+            rc = proc.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise
+        if rc != 0:
+            raise AssertionError(f"11b {name} run exited {rc}:\n"
+                                 + log_file.read_text()[-4000:])
+        (folder,) = list(run_dir.iterdir())
+        with open(folder / "round_result.csv", newline="") as f:
+            rr = list(csv.DictReader(f))
+        runs[name] = {"folder": folder, "s": time.perf_counter() - t0,
+                      "round_s": [float(r["round_time"]) for r in rr],
+                      "finalize_s": [float(r["finalize_time"]) for r in rr],
+                      "launches": sum(_launches_logged(log_file)),
+                      "steps": expected_launches(folder / "train_result.csv",
+                                                 int(base["batch_size"])),
+                      **_overlap_logged(log_file)}
+    a, b = runs["serial"], runs["overlap"]
+    want, got = (canonical_run_outputs(r["folder"]) for r in (a, b))
+    differ = sorted(k for k in set(want) | set(got)
+                    if want.get(k) != got.get(k))
+    state = [(r["folder"] / "model_last.pt.tar" / "state.pt").read_bytes()
+             for r in (a, b)]
+    epochs = [json.loads(l)["epoch"] for l in
+              (b["folder"] / "metrics.jsonl").read_text().splitlines() if l]
+    clocks = ("rounds", "hidden_eval_s", "eval_wait_s", "finalized_ahead")
+    for name, r in runs.items():
+        log(f"phase 11b: CIFAR {name}, 3 poisoned rounds in a fresh "
+            f"deterministic process: {r['s']:.1f}s in all; round_time "
+            f"{r['round_s']}, finalize_time {r['finalize_s']}; "
+            f"{r['launches']} fused launches = {r['steps']} local steps; "
+            f"overlap clocks {({k: r[k] for k in clocks if k in r})}")
+    log(f"phase 11b: serial vs overlapped: outputs differing {differ}, "
+        f"final checkpoint byte-identical {state[0] == state[1]}")
+    counts = [(r["launches"], r["steps"]) for r in runs.values()]
+    if (differ or state[0] != state[1] or epochs != [2, 3, 4]
+            or b.get("rounds") != 3
+            or any(n != steps or steps == 0 for n, steps in counts)):
+        raise AssertionError(f"11b: serial and overlapped CIFAR runs differ "
+                             f"({differ}, checkpoint equal "
+                             f"{state[0] == state[1]}, epochs {epochs}) or "
+                             f"launches against steps {counts}")
+    for r in runs.values():
+        del r["folder"]
+    return {**runs, "launches": a["launches"] + b["launches"]}
+
+
+def overlap_small(tmp: Path) -> int:
+    """Phase 11c, in phase 10a's fresh process (deterministic kernels must
+    be chosen before anything runs on the card): the MNIST async run at
+    configs/async_smoke_params.yaml's knobs, serial and with overlap_eval
+    (the merge pipeline). Prints one JSON line: whether the global models
+    are bitwise equal and the recorded outputs equal, the driver's stats,
+    and each run's fused launches and wave steps."""
+    from dba_mod_tpu_torch.utils.device import use_deterministic_kernels
+    use_deterministic_kernels()
+    import numpy as np
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl import rounds
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.ops import fused_update as fu
+    from dba_mod_tpu_torch.utils.recorder import canonical_run_outputs
+
+    raw = yaml.safe_load(
+        (REPO / "configs" / "async_smoke_params.yaml").read_text())
+    real_train = rounds.RoundEngine.train_fn
+    wave_steps: list = []
+
+    def train(self, global_vars, tasks_seq, idx_seq, mask_seq, *a, **kw):
+        wave_steps.append(int(np.asarray(mask_seq).any(axis=(1, 4)).sum()))
+        return real_train(self, global_vars, tasks_seq, idx_seq, mask_seq,
+                          *a, **kw)
+
+    rounds.RoundEngine.train_fn = train
+    runs = {}
+    for name, knobs in (("serial", {}), ("overlap", {"overlap_eval": True})):
+        p = Params.from_dict(dict(raw, run_dir=str(tmp / f"ovl_async_{name}"),
+                                  **knobs))
+        exp = Experiment(p, save_results=True, device="cuda")
+        wave_steps.clear()
+        fu.fused_step_update.launches = 0
+        t0 = time.perf_counter()
+        exp.run()
+        torch.cuda.synchronize()
+        runs[name] = {"exp": exp, "s": time.perf_counter() - t0,
+                      "launches": fu.fused_step_update.launches,
+                      "steps": sum(wave_steps),
+                      "stats": exp.async_driver.stats()}
+    a, b = runs["serial"]["exp"], runs["overlap"]["exp"]
+    ma = {**a.global_vars.params, **a.global_vars.batch_stats}
+    mb = {**b.global_vars.params, **b.global_vars.batch_stats}
+    unequal = [k for k in ma if not torch.equal(ma[k], mb[k])]
+    want, got = (canonical_run_outputs(e.folder) for e in (a, b))
+    differ = sorted(k for k in set(want) | set(got)
+                    if want.get(k) != got.get(k))
+    print(json.dumps({
+        "phase": "11c",
+        "model_bitwise_equal": not unequal, "outputs_differ": differ,
+        "merges": len(got.get("metrics.jsonl", [])),
+        **{f"{m}_{k}": r[k] for m, r in runs.items()
+           for k in ("s", "launches", "steps", "stats")}}), flush=True)
+    return 0
+
+
+def run_profile_round(tmp: Path) -> dict:
+    """Phase 11d: profile_dir on an MNIST smoke run of two rounds on the
+    card: torch.profiler traces the round after warm-up into the folder."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    raw = dict(yaml.safe_load(
+        (REPO / "configs" / "smoke_params.yaml").read_text()), epochs=2,
+        profile_dir=str(tmp / "prof"), run_dir=str(tmp / "runs_prof"))
+    exp = Experiment(Params.from_dict(raw), save_results=True,
+                     device="cuda")
+    fu.fused_step_update.launches = 0
+    t0 = time.perf_counter()
+    exp.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fu.fused_step_update.launches
+    steps = expected_launches(exp.folder / "train_result.csv",
+                              int(raw["batch_size"]))
+    traces = list((tmp / "prof").glob("round_2.pt.trace.json"))
+    kernels = (sum(1 for e in json.loads(traces[0].read_text())
+                   .get("traceEvents", []) if e.get("cat") == "kernel")
+               if traces else 0)
+    if not traces or kernels == 0 or launches != steps or launches == 0:
+        raise AssertionError(f"11d: traces {traces} with {kernels} kernel "
+                             f"events; launches {launches}, steps {steps}")
+    out = {"run_s": run_s, "trace_bytes": traces[0].stat().st_size,
+           "kernel_events": kernels, "launches": launches}
+    log(f"phase 11d: MNIST, 2 rounds with profile_dir in {run_s:.1f}s: "
+        f"{traces[0].name} of {out['trace_bytes']} B with {kernels} kernel "
+        f"events; {launches} fused launches = {steps} local steps")
+    return out
+
+
+def run_phase11(tmp: Path, f32: dict, small: dict) -> dict:
+    """Phase 11: telemetry (a), sync overlap A/B (b), the async merge
+    pipeline A/B (c: `small`, the result phase 10a's fresh process
+    printed) and profile_dir (d)."""
+    t0 = time.perf_counter()
+    tel = run_telemetry_cifar(tmp, f32)
+    ovl = run_overlap_cifar(tmp)
+    log(f"phase 11c: MNIST async (async_smoke knobs) serial vs overlap_eval, "
+        f"deterministic: model bitwise equal {small['model_bitwise_equal']}, "
+        f"outputs differing {small['outputs_differ']}; {small['merges']} "
+        f"merges; pipelined_merges "
+        f"{small['overlap_stats']['pipelined_merges']}, hidden_finalize_s "
+        f"{small['overlap_stats']['hidden_finalize_s']}; fused launches "
+        f"{small['serial_launches']} / {small['overlap_launches']} = wave "
+        f"steps {small['serial_steps']} / {small['overlap_steps']}; "
+        f"{small['serial_s']:.1f} / {small['overlap_s']:.1f} s")
+    if (not small["model_bitwise_equal"] or small["outputs_differ"]
+            or small["overlap_stats"]["pipelined_merges"] == 0
+            or small["serial_launches"] != small["serial_steps"]
+            or small["overlap_launches"] != small["overlap_steps"]
+            or small["serial_launches"] == 0):
+        raise AssertionError(f"11c: async merge pipeline on the card: "
+                             f"{small}")
+    prof = run_profile_round(tmp)
+    total = time.perf_counter() - t0
+    log(f"phase 11: {total:.1f}s")
+    return {"telemetry": tel, "overlap": ovl, "async_overlap": small,
+            "profile": prof, "seconds": total,
+            "launches": tel["launches"] + ovl["launches"]}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -1585,10 +1986,21 @@ def main() -> int:
         f"(nvcc seconds {cuda_build.build_seconds}); load total "
         f"{time.perf_counter() - t0:.2f}s")
 
+    phase_s: dict = {}
+
+    def timed(name, fn, *args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            phase_s[name] = round(time.perf_counter() - t, 1)
+
+    t3 = time.perf_counter()
     kernels = (check_fused_update(dev)
                + check_fused_update(dev, "tiny_params.yaml", "tiny")
                + check_fused_update(dev, "loan_params.yaml", "loan",
                                    fg_cases=(False,)))
+    phase_s["3"] = round(time.perf_counter() - t3, 1)
     torch.cuda.empty_cache()
     for k in kernels:
         log(f"phase 3: {k['name']} kernel {k['ms']:.4f} ms (profiler "
@@ -1601,30 +2013,19 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as td:
         tmp = Path(td)
-        path = run_main_path(tmp)
-        kernels[0]["launches"] = path["launches"]
-        robust = run_robust_rounds(tmp)
-        kernels[1]["launches"] = robust["foolsgold"]["launches"]
-        rules = time_aggregation_rules(dev)
-        small = check_small_reference(tmp)
-        fault = check_fault_round(tmp)
-        tiny = run_tiny_path(tmp)
-        kernels[2]["launches"] = tiny["fedavg"]["launches"]
-        kernels[3]["launches"] = tiny["foolsgold"]["launches"]
-        loan = run_loan_path(tmp)
-        kernels[4]["launches"] = loan["launches"]
-        bf16 = run_bf16(tmp, path)
-        crash = run_crash_resume(tmp)
-        asyn = run_async(tmp)
-        kernels[0]["launches"] = path["launches"] + asyn["launches"]
-
+        tiny_data = start_tiny_data(tmp)
+        try:
+            out = run_phases(tmp, dev, kernels, timed, tiny_data)
+        finally:
+            if tiny_data.poll() is None:
+                tiny_data.kill()
+                tiny_data.wait()
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all; phase "
+        f"seconds {phase_s}")
     for k in kernels:
         del k["bytes"]
-    print(json.dumps({"main_path": path, "robust_rounds": robust,
-                      "aggregate_ms": rules, "small_reference": small,
-                      "fault_round": fault, "tiny_path": tiny,
-                      "loan_path": loan, "bf16": bf16,
-                      "crash_resume": crash, "async": asyn}), flush=True)
+    print(json.dumps({**out, "phase_s": phase_s,
+                      "seconds": time.perf_counter() - t_start}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1633,11 +2034,42 @@ def main() -> int:
     return 0
 
 
+def run_phases(tmp: Path, dev, kernels: list, timed, tiny_data) -> dict:
+    """Phases 4-11, each under `timed`; fills in the kernels' launches."""
+    path = timed("4", run_main_path, tmp)
+    kernels[0]["launches"] = path["launches"]
+    robust = timed("4b", run_robust_rounds, tmp)
+    kernels[1]["launches"] = robust["foolsgold"]["launches"]
+    rules = timed("4c", time_aggregation_rules, dev)
+    small = timed("5", check_small_reference, tmp)
+    fault = timed("5b", check_fault_round, tmp)
+    tiny = timed("6", run_tiny_path, tmp, tiny_data)
+    kernels[2]["launches"] = tiny["fedavg"]["launches"]
+    kernels[3]["launches"] = tiny["foolsgold"]["launches"]
+    loan = timed("7", run_loan_path, tmp)
+    kernels[4]["launches"] = loan["launches"]
+    bf16 = timed("8", run_bf16, tmp, path)
+    crash = timed("9", run_crash_resume, tmp)
+    asyn = timed("10", run_async, tmp)
+    ph11 = timed("11", run_phase11, tmp, path, asyn["11c"])
+    kernels[0]["launches"] = (path["launches"] + asyn["launches"]
+                              + ph11["launches"])
+    return {"main_path": path, "robust_rounds": robust,
+            "aggregate_ms": rules, "small_reference": small,
+            "fault_round": fault, "tiny_path": tiny, "loan_path": loan,
+            "bf16": bf16, "crash_resume": crash, "async": asyn,
+            "phase11": ph11}
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["bf16-rounds"]:     # phase 8's fresh process
         sys.path.insert(0, str(REPO))
         sys.exit(bf16_rounds(Path(sys.argv[2])))
-    if sys.argv[1:2] == ["async-keystone"]:  # phase 10a's fresh process
+    if sys.argv[1:2] == ["tiny-data"]:       # phase 6's data, made early
         sys.path.insert(0, str(REPO))
-        sys.exit(async_keystone(Path(sys.argv[2])))
+        sys.exit(write_tiny_data(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["deterministic-mnist"]:  # 10a's and 11c's process
+        sys.path.insert(0, str(REPO))
+        sys.exit(async_keystone(Path(sys.argv[2]))
+                 or overlap_small(Path(sys.argv[2])))
     sys.exit(main())

@@ -1,6 +1,6 @@
 """Checkpoint/resume with ``torch.save``, integrity manifests, the
-full-state sidecar and auto-resume (port of dba_mod_tpu/checkpoint.py, less
-its orbax async saves, which come with ``pipeline_rounds``, ROADMAP A17).
+full-state sidecar, auto-resume and async saves (port of
+dba_mod_tpu/checkpoint.py).
 
 Reference parity (helper.py:51-57, :420-435; image_helper.py:56-67): the
 saved unit is {model state, epoch, lr}; resume restores the global model,
@@ -26,20 +26,34 @@ package's orbax step dirs are) holding ``state.pt``. Beside it:
 snapshot at every instant of an overwrite, retention GC (``keep_last_n``;
 ``model_last`` and ``.best`` always kept) and the startup sweep of
 orphaned ``*.tmp`` files.
+
+**Async saves** (``async_save=True``, used by ``pipeline_rounds`` /
+``overlap_eval``): the writes go to ONE background writer thread that runs
+its jobs in program order — the ``.prev`` clone, the state files, the
+sidecar, then the manifest, which is therefore written only after its
+files landed (:func:`queue_manifest`). The caller hands in host copies
+captured at dispatch, so the writer never touches the device.
+:func:`wait_for_async_saves` drains the writer and raises the first failed
+job's error (a failed job's later jobs are skipped: a failed write never
+gets a manifest); it is registered with ``atexit`` on first use.
 """
 from __future__ import annotations
 
+import atexit
 import hashlib
 import json
 import logging
 import os
+import queue
 import shutil
+import threading
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from dba_mod_tpu_torch.models import ModelVars
+from dba_mod_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("dba_mod_tpu_torch")
 
@@ -50,19 +64,105 @@ PREV_SUFFIX = ".prev"
 STATE_FILE = "state.pt"
 
 
+# ------------------------------------------------------------ async writer
+class _AsyncWriter:
+    """One daemon thread running checkpoint jobs in submission order. After
+    a failed job the later ones are skipped, and the error is raised by the
+    next :meth:`check` or :meth:`wait`."""
+
+    def __init__(self):
+        self._q: "queue.Queue[Callable[[], None]]" = queue.Queue()
+        self._error: Optional[BaseException] = None
+        threading.Thread(target=self._loop, daemon=True,
+                         name="dba-checkpoint-writer").start()
+
+    def _loop(self) -> None:
+        while True:
+            job = self._q.get()
+            try:
+                if self._error is None:
+                    job()
+            except BaseException as exc:  # noqa: BLE001 — re-raised
+                self._error = exc
+            finally:
+                self._q.task_done()
+
+    def submit(self, job: Callable[[], None]) -> None:
+        self.check()
+        self._q.put(job)
+
+    def check(self) -> None:
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError("an async checkpoint write failed; its "
+                               "snapshot got no manifest") from err
+
+    def wait(self) -> None:
+        self._q.join()
+        self.check()
+
+
+_writer: Optional[_AsyncWriter] = None
+_writer_lock = threading.Lock()
+
+# manifests owed to async saves whose files have not landed yet: abs path
+# -> epoch. Module-level, so every manager of the process shares it.
+_pending_manifests: Dict[str, int] = {}
+
+
+def async_job(job: Callable[[], None]) -> None:
+    """Run `job` on the checkpoint writer, after every job submitted
+    before it (the writer starts at first use; every exit path then waits
+    for it through ``atexit``)."""
+    global _writer
+    with _writer_lock:
+        if _writer is None:
+            _writer = _AsyncWriter()
+            atexit.register(wait_for_async_saves)
+    _writer.submit(job)
+
+
+def _run(job: Callable[[], None], async_save: bool) -> None:
+    if async_save:
+        async_job(job)
+    else:
+        job()
+
+
+def wait_for_async_saves() -> None:
+    """Block until every queued checkpoint job has run (so every async
+    snapshot and the manifests it was owed are on disk); raises the error
+    of a failed job."""
+    if _writer is not None:
+        with telemetry.span("checkpoint/wait_async"):
+            _writer.wait()
+
+
+def _host_tree(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in tree.items()}
+
+
 def save_checkpoint(path: str | Path, model_vars: ModelVars, epoch: int,
-                    lr: float) -> None:
-    """Write ``<path>/state.pt`` atomically (tmp + os.replace)."""
+                    lr: float, *, async_save: bool = False) -> None:
+    """Write ``<path>/state.pt`` atomically (tmp + os.replace). With
+    `async_save` the write is queued on the writer thread; give it host
+    tensors (copies captured at dispatch) so the caller never waits for
+    the card."""
     path = Path(path).absolute()
-    path.mkdir(parents=True, exist_ok=True)
-    payload = {"params": {k: v.detach().cpu()
-                          for k, v in model_vars.params.items()},
-               "batch_stats": {k: v.detach().cpu()
-                               for k, v in model_vars.batch_stats.items()},
+    payload = {"params": _host_tree(model_vars.params),
+               "batch_stats": _host_tree(model_vars.batch_stats),
                "epoch": int(epoch), "lr": float(lr)}
-    tmp = path / (STATE_FILE + ".tmp")
-    torch.save(payload, tmp)
-    os.replace(tmp, path / STATE_FILE)
+
+    def write():
+        path.mkdir(parents=True, exist_ok=True)
+        tmp = path / (STATE_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, path / STATE_FILE)
+
+    telemetry.count("checkpoint/saves")
+    with telemetry.span("checkpoint/save_async_enqueue" if async_save
+                        else "checkpoint/save"):
+        _run(write, async_save)
 
 
 def load_checkpoint(path: str | Path, like: ModelVars
@@ -70,8 +170,10 @@ def load_checkpoint(path: str | Path, like: ModelVars
     """Restore a snapshot onto `like`'s devices; the key sets and shapes
     must match `like` (a checkpoint of another model raises)."""
     path = Path(path).absolute()
-    state = torch.load(path / STATE_FILE, map_location="cpu",
-                       weights_only=True)
+    telemetry.count("checkpoint/loads")
+    with telemetry.span("checkpoint/load"):
+        state = torch.load(path / STATE_FILE, map_location="cpu",
+                           weights_only=True)
 
     def restore(saved: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor]):
         if set(saved) != set(ref):
@@ -92,16 +194,22 @@ def load_checkpoint(path: str | Path, like: ModelVars
 
 
 # ----------------------------------------------------------- full-state aux
-def save_aux_state(path: str | Path, aux: Dict[str, Any]) -> None:
+def save_aux_state(path: str | Path, aux: Dict[str, Any], *,
+                   async_save: bool = False) -> None:
     """Write the experiment sidecar next to a snapshot directory, atomically
     (tmp + os.replace), so a crash mid-save leaves the previous sidecar.
     `aux` holds CPU tensors, python scalars, strings and tuples of them —
-    what ``torch.load(weights_only=True)`` reads back."""
+    what ``torch.load(weights_only=True)`` reads back. `async_save` queues
+    the write on the writer thread."""
     path = Path(str(path) + AUX_SUFFIX).absolute()
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(path.name + ".tmp")
-    torch.save(aux, tmp)
-    os.replace(tmp, path)
+
+    def write():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(path.name + ".tmp")
+        torch.save(aux, tmp)
+        os.replace(tmp, path)
+
+    _run(write, async_save)
 
 
 def load_aux_state(path: str | Path) -> Optional[Dict[str, Any]]:
@@ -115,6 +223,7 @@ def load_aux_state(path: str | Path) -> Optional[Dict[str, Any]]:
     try:
         return torch.load(path, map_location="cpu", weights_only=True)
     except Exception as exc:  # noqa: BLE001 — any unreadable sidecar
+        telemetry.count("checkpoint/corrupt_detected")
         logger.warning(
             "resume sidecar %s is corrupt (%r) — degrading to model-only "
             "resume (FoolsGold memory and RNG streams restart)", path, exc)
@@ -155,13 +264,14 @@ def write_manifest(path: str | Path, epoch: int) -> Path:
     (tmp + os.replace) so a crash mid-write leaves the previous manifest or
     none — never a half-manifest."""
     path = Path(path).absolute()
-    files = {key: {"sha256": _sha256(p), "size": p.stat().st_size}
-             for key, p in _checkpoint_files(path).items()}
-    doc = {"version": 1, "epoch": int(epoch), "files": files}
-    mpath = manifest_path(path)
-    tmp = mpath.with_name(mpath.name + ".tmp")
-    tmp.write_text(json.dumps(doc, indent=0, sort_keys=True))
-    os.replace(tmp, mpath)
+    with telemetry.span("checkpoint/manifest"):
+        files = {key: {"sha256": _sha256(p), "size": p.stat().st_size}
+                 for key, p in _checkpoint_files(path).items()}
+        doc = {"version": 1, "epoch": int(epoch), "files": files}
+        mpath = manifest_path(path)
+        tmp = mpath.with_name(mpath.name + ".tmp")
+        tmp.write_text(json.dumps(doc, indent=0, sort_keys=True))
+        os.replace(tmp, mpath)
     return mpath
 
 
@@ -188,6 +298,11 @@ def verify_checkpoint(path: str | Path) -> Tuple[bool, str]:
     mpath = manifest_path(path)
     if not mpath.exists():
         return False, VERIFY_NO_MANIFEST
+    with telemetry.span("checkpoint/verify"):
+        return _verify(path, mpath)
+
+
+def _verify(path: Path, mpath: Path) -> Tuple[bool, str]:
     # broad catches: an unreadable manifest, valid JSON of the wrong shape
     # or a file vanishing mid-hash all mean "not verified", never an
     # exception into the resume path
@@ -228,6 +343,7 @@ def quarantine_checkpoint(path: str | Path) -> Path:
     for piece in (path, Path(str(path) + AUX_SUFFIX), manifest_path(path)):
         if piece.exists():
             shutil.move(str(piece), str(dest / piece.name))
+    telemetry.count("checkpoint/quarantined")
     logger.warning("quarantined corrupt checkpoint %s -> %s", path, dest)
     return dest
 
@@ -261,6 +377,7 @@ def latest_verified_checkpoint(folder: str | Path,
         ok, reason = verify_checkpoint(p)
         if ok:
             return p
+        telemetry.count("checkpoint/corrupt_detected")
         logger.warning(
             "checkpoint %s (epoch %d) failed verification: %s — falling "
             "back to the previous verified snapshot", p, ep, reason)
@@ -283,6 +400,7 @@ def resolve_verified(path: str | Path) -> Path:
         if not path.is_dir():
             raise FileNotFoundError(f"resume checkpoint not found: {path}")
         return path
+    telemetry.count("checkpoint/corrupt_detected")
     logger.warning("resume checkpoint %s failed verification: %s",
                    path, reason)
     for ep, _, p in _discovery_candidates(path.parent):
@@ -375,6 +493,24 @@ def unprotect_prev(path: str | Path) -> None:
         shutil.rmtree(dest, ignore_errors=True)
 
 
+# -------------------------------------------------- pending async manifests
+def queue_manifest(path: str | Path, epoch: int) -> None:
+    """Owe `path` a manifest for `epoch`, written by the writer thread once
+    the files queued before it have landed (and before any later save of
+    the same path starts: the writer runs its jobs in order)."""
+    key, epoch = str(Path(path).absolute()), int(epoch)
+    _pending_manifests[key] = epoch
+    async_job(lambda: _land_manifest(key, epoch))
+
+
+def _land_manifest(key: str, epoch: int) -> None:
+    if _pending_manifests.get(key) == epoch:
+        del _pending_manifests[key]
+    if Path(key).is_dir():
+        write_manifest(key, epoch)
+        unprotect_prev(key)  # the replacement verifies: drop the clone
+
+
 # --------------------------------------------------------- retention + sweep
 def sweep_stale(folder: str | Path) -> List[str]:
     """Startup sweep of a run folder: delete the ``*.tmp`` files a crash
@@ -405,35 +541,52 @@ class CheckpointManager:
         self.keep_last_n = int(keep_last_n)
         self.manifests = bool(manifests)
 
-    def prepare_overwrite(self, paths: List[Path]) -> None:
+    def prepare_overwrite(self, paths: List[Path],
+                          async_save: bool = False) -> None:
         """Call BEFORE re-saving existing snapshot paths: clone each
         verified one to ``<name>.prev`` so a kill at any point of the
         upcoming save still leaves a verified resume point (the clone goes
-        once the replacement's manifest lands, in :meth:`note_saved`)."""
+        once the replacement's manifest lands, in :meth:`note_saved`).
+        With `async_save` this runs on the writer, after the previous
+        save's manifests landed."""
         if not self.manifests:
             return
-        for p in paths:
-            protect_last(p)
 
-    def note_saved(self, paths: List[Path], epoch: int) -> None:
-        """Call AFTER a round's snapshots and their sidecars are written:
-        each gets its manifest, then its ``.prev`` clone is dropped."""
+        def run():
+            for p in paths:
+                protect_last(p)
+        _run(run, async_save)
+
+    def note_saved(self, paths: List[Path], epoch: int,
+                   async_save: bool = False) -> None:
+        """Call AFTER a round's snapshots and their sidecars are written
+        (or queued): each gets its manifest, then its ``.prev`` clone is
+        dropped — for an async save on the writer, once the files before
+        it landed."""
         if not self.manifests:
             return
         for p in paths:
-            write_manifest(p, epoch)
-            unprotect_prev(p)
+            if async_save:
+                queue_manifest(p, epoch)
+            else:
+                write_manifest(p, epoch)
+                unprotect_prev(p)
 
     def sweep(self) -> List[str]:
         return sweep_stale(self.folder) if self.folder is not None else []
 
-    def gc(self) -> List[Path]:
+    def gc(self, async_save: bool = False) -> List[Path]:
         """Retention: with ``keep_last_n > 0``, delete per-epoch snapshots
         (``*.epoch_N`` + sidecar + manifest) beyond the newest N.
-        ``model_last`` and the best-val snapshot are always kept; the
-        default (0) keeps everything — ``save_on_epochs`` lists are
-        explicit user asks."""
+        ``model_last`` and the best-val snapshot are always kept, and so is
+        a snapshot still owed its manifest; the default (0) keeps
+        everything — ``save_on_epochs`` lists are explicit user asks. With
+        `async_save` it runs on the writer after the queued saves (and
+        returns [])."""
         if self.keep_last_n <= 0 or self.folder is None:
+            return []
+        if async_save:
+            async_job(self.gc)
             return []
         snaps = []
         for p in self.folder.iterdir():
@@ -444,12 +597,14 @@ class CheckpointManager:
                 continue
             snaps.append((int(tail), p))
         snaps.sort()
-        doomed = [p for _, p in snaps[:-self.keep_last_n]]
+        doomed = [p for _, p in snaps[:-self.keep_last_n]
+                  if str(p.absolute()) not in _pending_manifests]
         for p in doomed:
             shutil.rmtree(p, ignore_errors=True)
             for extra in (Path(str(p) + AUX_SUFFIX), manifest_path(p)):
                 if extra.exists():
                     extra.unlink()
+            telemetry.count("checkpoint/gc_removed")
         if doomed:
             logger.info("checkpoint GC (keep_last_n=%d) removed %s",
                         self.keep_last_n, [p.name for p in doomed])

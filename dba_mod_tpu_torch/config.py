@@ -352,11 +352,6 @@ def check_ported(raw: Dict[str, Any]) -> None:
     not carry yet. Every default passes."""
     if int(raw["num_devices"]) not in (0, 1):
         raise _unported(f"num_devices: {raw['num_devices']}", "A18")
-    if (bool(raw["telemetry"]) or bool(raw["tensorboard"])
-            or str(raw["profile_dir"] or "")):
-        raise _unported("telemetry / tensorboard / profile_dir", "A17")
-    if bool(raw["overlap_eval"]) or bool(raw["pipeline_rounds"]):
-        raise _unported("overlap_eval / pipeline_rounds", "A17")
     if float(raw["heartbeat_interval_s"]) or float(
             raw["fault_host_loss_prob"]):
         raise _unported("heartbeat / fault_host_loss_prob", "A18")

@@ -72,12 +72,24 @@ wait after STARVATION_LIMIT empty cohorts), ``max_outstanding_waves``
 (backpressure), ``arrival_ttl_v`` (expiry), ``model_health_check`` (an
 unhealthy merge re-merges the same buffer with an escalated norm screen up
 to ``max_round_retries``, then rolls back to the last-good ring) and
-``min_surviving_clients`` (skip-and-carry). The JAX driver's telemetry
-spans and the ``overlap_eval`` merge pipeline are ROADMAP A17; the config
-rejects them in both modes.
+``min_surviving_clients`` (skip-and-carry).
+
+``overlap_eval`` pipelines the merges (depth 1): merge S is dispatched —
+buffer consumed, merged under the sentinel's loop, the ring committed, the
+new model committed, its global battery enqueued on the eval stream and its
+host copy after it — and finalized (rows recorded, checkpoint written from
+the state captured at dispatch) only after merge S+1 was dispatched, so
+S's battery and host work run beside S+1's wave training. The recorded
+stream is byte-identical to the serial one: finalize replays the deferred
+wave rows in resolution order. The pipeline stands down under telemetry
+(honest per-step spans) and for poisoned LOAN runs (the adaptive poison-LR
+probe reads ``last_backdoor_acc`` at wave dispatch, which pipelining would
+make one more merge stale). Telemetry counts the driver's events under
+``async/*``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import logging
@@ -91,8 +103,9 @@ from dba_mod_tpu_torch import config as cfg
 from dba_mod_tpu_torch.data.batching import build_batch_plan
 from dba_mod_tpu_torch.fl import faults as flt
 from dba_mod_tpu_torch.fl.client import ClientMetrics
-from dba_mod_tpu_torch.fl.evaluation import EvalResult
-from dba_mod_tpu_torch.fl.experiment import to_host
+from dba_mod_tpu_torch.fl.evaluation import EvalResult, place_eval_inputs
+from dba_mod_tpu_torch.fl.experiment import (HostCopy, PendingCopy,
+                                             RoundInFlight, to_host)
 from dba_mod_tpu_torch.fl.rounds import (LocalEvals, _map2, aggregate,
                                          nbt_client_deltas,
                                          screen_client_updates)
@@ -100,6 +113,7 @@ from dba_mod_tpu_torch.fl.selection import select_agents
 from dba_mod_tpu_torch.fl.state import ClientTask, build_client_tasks
 from dba_mod_tpu_torch.models import ModelVars
 from dba_mod_tpu_torch.ops.aggregation import _bc_mask
+from dba_mod_tpu_torch.utils.device import to_device
 
 logger = logging.getLogger("dba_mod_tpu_torch.async_rounds")
 
@@ -170,6 +184,37 @@ class _Wave:
     outstanding: int             # lanes not yet consumed
     recorded: bool = False
     t_dispatch: float = 0.0      # virtual clock at dispatch (arrival_ttl_v)
+    rows: Optional[HostCopy] = None  # the row payload's host copy, enqueued
+                                     # when the cohort resolves
+
+
+@dataclasses.dataclass
+class _MergeInFlight:
+    """One dispatched, not yet finalized merge: its outputs' host copy and
+    every host value finalize needs, captured at dispatch — by finalize
+    time the live driver state (version, clock, heap, RNG streams, global
+    model) already belongs to the next step's fill."""
+    step: int
+    t0: float                    # perf_counter at dispatch start
+    host: Any                    # HostCopy (PendingCopy under the
+                                 # pipeline) of (globals, wv, alpha,
+                                 # is_updated, n_quar, degraded)
+    names: List[Any]
+    adversaries: List[Any]
+    occupancy: int
+    retries: int
+    rolled_back: bool
+    n_dropped: int
+    dispatch_wall: float
+    extras: Dict[str, Any]
+    rows: List[_Wave]            # cohorts resolved since the previous merge,
+                                 # recorded (in order) before the merge row
+    keep: Any = None             # the battery's inputs, held until the copy
+    t_dispatch_end: float = 0.0
+    # checkpoint capture (run() under the pipeline): the streaming sidecar
+    # and the state after the merge — what save_model persists for it
+    snapshot: Optional[Dict[str, Any]] = None
+    saved: Optional[RoundInFlight] = None
 
 
 def _pack(x: Any) -> Any:
@@ -228,6 +273,15 @@ class AsyncDriver:
         self.max_outstanding = int(p.get("max_outstanding_waves", 0))
         self.arrival_ttl_v = float(p.get("arrival_ttl_v", 0.0))
         self._sentinel = exp._sentinel  # shared HealthSentinel or None
+        # overlap_eval: the depth-1 merge pipeline (module docstring), off
+        # under telemetry and for poisoned LOAN runs
+        self._pipeline = (bool(p.get("overlap_eval", False))
+                          and not exp.telemetry.enabled
+                          and not (p.type == cfg.TYPE_LOAN
+                                   and exp.is_poison_run))
+        self._eval_stream = exp._eval_stream if self._pipeline else None
+        self._overlap_merges = 0
+        self._overlap_hidden_s = 0.0
         # streaming state
         self.version = 0          # merges applied
         self.wave = 0             # cohorts dispatched
@@ -258,7 +312,9 @@ class AsyncDriver:
     def run(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         """The server loop: fill the buffer from the arrival queue
         (dispatching cohorts on demand), merge, record, checkpoint — until
-        the merge budget is spent or a graceful stop lands."""
+        the merge budget is spent or a graceful stop lands. Under the
+        pipeline ONE merge is held dispatched but unfinalized across the
+        next fill."""
         exp = self.exp
         p = exp.params
         eps = int(epochs if epochs is not None else p["epochs"])
@@ -268,6 +324,23 @@ class AsyncDriver:
             # exactly `epochs` merges
             total = max(1, eps * self.C // self.K)
         last: Dict[str, Any] = {}
+        pending: Optional[_MergeInFlight] = None
+
+        def log_merge(r):
+            logger.info(
+                "merge %d/%d done acc=%.2f staleness_mean=%.2f "
+                "occupancy=%d/%d", r["epoch"], total, r["global_acc"],
+                r["staleness_mean"], r["buffer_occupancy"], self.K)
+
+        def drain(h: Optional[_MergeInFlight]):
+            if h is None:
+                return last
+            r = self._finalize_merge(h)
+            self._save_pending(h)
+            exp.telemetry.mark_warm()
+            log_merge(r)
+            return r
+
         while self.version < total:
             exp.guard.watchdog.epoch = self.version + 1
             merge = not exp.guard.stop_requested and self._fill_buffer()
@@ -275,6 +348,8 @@ class AsyncDriver:
                 # graceful stop (it may land while a wave trains; the fill
                 # then dispatches no more): what the buffer holds is
                 # flushed as one final padded merge and checkpointed
+                last = drain(pending)
+                pending = None
                 if self._buffer:
                     last = self._merge_and_record()
                     self._save()
@@ -283,39 +358,59 @@ class AsyncDriver:
                     "graceful stop honored at the merge boundary after "
                     "step %d (resume with --resume auto)", self.version)
                 break
-            if merge:
-                last = self._merge_and_record()
-            else:
-                last = self._carry_starved_step()
+            if merge and self._pipeline:
+                nxt = self._dispatch_merge(capture_save=True)
+                last = drain(pending)
+                pending = nxt
+                continue
+            last = drain(pending)
+            pending = None
+            last = (self._merge_and_record() if merge
+                    else self._carry_starved_step())
             self._save()
-            logger.info(
-                "merge %d/%d done acc=%.2f staleness_mean=%.2f "
-                "occupancy=%d/%d", self.version, total, last["global_acc"],
-                last["staleness_mean"], last["buffer_occupancy"], self.K)
+            exp.telemetry.mark_warm()
+            log_merge(last)
+        last = drain(pending)
         leftovers = len(self._buffer) + len(self._heap)
         if leftovers and not exp.interrupted:
+            exp.telemetry.counter("async/unmerged_leftovers").inc(leftovers)
             logger.info("run end: %d buffered/in-flight updates discarded "
                         "(budget of %d merges spent)", leftovers, total)
+        logger.info("async stats: %s", self.stats())
         return last
 
     def run_steps(self, n: int) -> Dict[str, Any]:
         """Run n merges, no checkpoints (fewer when a stop is requested;
-        the stop flush is run()'s)."""
+        the stop flush is run()'s). Under the pipeline the merges are
+        pipelined as in run(), and the last one is drained before this
+        returns."""
         last: Dict[str, Any] = {}
+        pending: Optional[_MergeInFlight] = None
         for _ in range(n):
             merge = self._fill_buffer()
             if self.exp.guard.stop_requested:
                 break
-            if merge:
-                last = self._merge_and_record()
-            else:
-                last = self._carry_starved_step()
+            if merge and self._pipeline:
+                nxt = self._dispatch_merge()
+                if pending is not None:
+                    last = self._finalize_merge(pending)
+                pending = nxt
+                continue
+            if pending is not None:
+                last = self._finalize_merge(pending)
+                pending = None
+            last = (self._merge_and_record() if merge
+                    else self._carry_starved_step())
+        if pending is not None:
+            last = self._finalize_merge(pending)
         return last
 
     def stats(self) -> Dict[str, Any]:
         """p95 virtual merge latency (arrival → merge, virtual seconds),
         the backpressure / starvation / expiry / deadline / rollback
-        counters and the outstanding-waves high-water mark."""
+        counters, the outstanding-waves high-water mark, and the pipeline's
+        merges finalized one step late with the host seconds that ran
+        behind the next step."""
         lat = sorted(self._merge_latencies)
         p95 = float(lat[int(0.95 * (len(lat) - 1))]) if lat else 0.0
         return {"merge_latency_v_p95": p95,
@@ -324,7 +419,9 @@ class AsyncDriver:
                 "expired_arrivals": self._expired_arrivals,
                 "deadline_merges": self._deadline_merges,
                 "backpressure_hits": self._backpressure_hits,
-                "health_rollbacks": self._rollbacks}
+                "health_rollbacks": self._rollbacks,
+                "pipelined_merges": self._overlap_merges,
+                "hidden_finalize_s": round(self._overlap_hidden_s, 6)}
 
     def _save(self):
         if self.exp.params["save_model"] and self.exp.folder is not None:
@@ -354,6 +451,7 @@ class AsyncDriver:
         if t - w.t_dispatch <= self.arrival_ttl_v:
             return False
         self._expired_arrivals += 1
+        self.exp.telemetry.counter("async/expired_arrivals").inc()
         w.outstanding -= 1
         if w.outstanding == 0 and not w.recorded:
             self._resolve_wave(w)
@@ -367,22 +465,26 @@ class AsyncDriver:
         should be merged, False when the stream is starved and
         starvation_policy says to carry a no-op step. A requested stop ends
         the fill early (the caller flushes)."""
+        tel = self.exp.telemetry
         empty_waves = 0
         while len(self._buffer) < self.K:
             if self._deadline_due():
                 self._deadline_merges += 1
+                tel.counter("async/deadline_merges").inc()
                 return True
             while not self._heap:
                 if (self.max_outstanding > 0 and self._buffer
                         and len(self._waves) >= self.max_outstanding):
                     # admission control: flush instead of dispatching
                     self._backpressure_hits += 1
+                    tel.counter("async/backpressure_hits").inc()
                     return True
                 before = len(self._heap)
                 self._dispatch_wave()
                 if len(self._heap) == before:
                     empty_waves += 1
                     self._starved_cohorts += 1
+                    tel.counter("async/starved_cohorts").inc()
                     if empty_waves > STARVATION_LIMIT:
                         if self.starvation_policy == "carry":
                             return bool(self._buffer)
@@ -406,19 +508,32 @@ class AsyncDriver:
             self._buffer.append((wid, lane))
             self._arrival_t[(wid, lane)] = self.clock
             self._total_arrivals += 1
+            tel.counter("async/arrivals").inc()
+            tel.gauge("async/buffer_occupancy").set(len(self._buffer))
         return True
 
     def _dispatch_wave(self):
         """Select and train one cohort through the lockstep train step and
         enqueue its lanes as future arrivals. Consumes the selection and
         plan streams exactly as a sync round does."""
+        t0 = time.perf_counter()
+        tel = self.exp.telemetry
+        with tel.span("async/dispatch_wave"):
+            self._train_wave()
+        if len(self._waves) > self._waves_highwater:
+            self._waves_highwater = len(self._waves)
+            tel.gauge("async/outstanding_waves_highwater").set(
+                self._waves_highwater)
+        tel.counter("async/waves").inc()
+        self._dispatch_wall += time.perf_counter() - t0
+
+    def _train_wave(self):
         exp = self.exp
         p = exp.params
         dev = exp.device
         wid = self.wave
         self.wave += 1
         epoch = wid + 1
-        t0 = time.perf_counter()
         agent_names, adv_names = select_agents(
             p, epoch, exp.participants, exp.benign_names, exp.select_rng)
         # LOAN's adaptive poison LR never blocks the stream on a probe: the
@@ -438,8 +553,8 @@ class AsyncDriver:
         train = exp.engine.train_fn(
             exp.global_vars, [tasks], idx_seq, mask_seq,
             exp._dropout_masks(epoch, idx_seq.shape))
-        nbt = torch.from_numpy(nbt_client_deltas(
-            mask_seq, np.asarray(tasks.scale)[None])).to(dev)
+        nbt = to_device(nbt_client_deltas(
+            mask_seq, np.asarray(tasks.scale)[None]), dev)
         locals_ = None
         if exp.local_eval:
             zeros = _map2(lambda d, _: torch.zeros_like(d), train.deltas,
@@ -482,8 +597,6 @@ class AsyncDriver:
             # fully dropped cohort: resolve its train rows and free it
             self._resolve_wave(w)
             del self._waves[wid]
-        self._waves_highwater = max(self._waves_highwater, len(self._waves))
-        self._dispatch_wall += time.perf_counter() - t0
 
     # ----------------------------------------------------------------- merge
     def _merge(self, global_vars: ModelVars, deltas: ModelVars,
@@ -520,16 +633,30 @@ class AsyncDriver:
                 degraded)
 
     def _merge_and_record(self) -> Dict[str, Any]:
-        """Merge the buffer (padded to K) under the sentinel's retry loop,
-        advance the version, run the global battery and record one
-        metrics.jsonl row keyed by the aggregation step."""
+        """Merge the buffer (padded to K) and record it: the serial
+        composition of the merge's two phases."""
+        return self._finalize_merge(self._dispatch_merge())
+
+    def _dispatch_merge(self, capture_save: bool = False) -> _MergeInFlight:
+        """Phase 1 of a merge: consume the buffer, merge it under the
+        sentinel's retry loop, commit the ring, the new model and the
+        version, enqueue the global battery (on the eval stream under the
+        pipeline) and the outputs' host copy — without waiting for them.
+        With `capture_save` the checkpoint payload (streaming snapshot and
+        the state after the merge) is captured too, as a serial post-merge
+        save would see it."""
         exp = self.exp
         dev = exp.device
+        tel = exp.telemetry
         t0 = time.perf_counter()
         step = self.version + 1
+        tel.set_epoch(step)
         entries = sorted(self._buffer)     # (wave, lane): deterministic
         self._buffer = []
         B = len(entries)
+        # per-client rows of cohorts that resolved with this batch: queued
+        # and recorded at finalize, before the merge's own rows, in both
+        # modes
         for wid, _lane in entries:
             self._waves[wid].outstanding -= 1
         for wid in sorted({w for w, _ in entries}):
@@ -546,56 +673,63 @@ class AsyncDriver:
             present = {w.names[ln] for ln in merged_by_wave[wid]}
             adversaries.extend(n for n in w.adv_names if n in present)
         for e in entries:
-            self._merge_latencies.append(
-                max(0.0, self.clock - self._arrival_t.pop(e, self.clock)))
+            lat = max(0.0, self.clock - self._arrival_t.pop(e, self.clock))
+            self._merge_latencies.append(lat)
+            tel.histogram("async/merge_latency_v").observe(lat)
         if len(self._merge_latencies) > 100_000:
             del self._merge_latencies[:-50_000]
-        deltas, nbt, ns = self._gather(entries)
-        staleness = np.array([self.version - self._waves[w].base_version
-                              for w, _ in entries], np.float32)
-        w_full = np.zeros((self.K,), np.float32)
-        w_full[:B] = staleness_weights(staleness, self.weighting, self.alpha)
-        occ = np.zeros((self.K,), bool)
-        occ[:B] = True
-        occ_t = torch.from_numpy(occ).to(dev)
-        w_t = torch.from_numpy(w_full).to(dev)
-        ns_t = torch.from_numpy(ns).to(dev)
-        vars_before = exp.global_vars
-        # the health sentinel's loop: an unhealthy candidate re-merges the
-        # SAME buffer, with the same DP noise, under an escalated screen
-        gen_state = exp.noise_gen.get_state()
-        norm_mult: Optional[float] = None
-        retries, rolled_back = 0, False
-        healthy, unorm = True, 0.0
-        while True:
-            nm = (exp.engine.base_norm_mult if norm_mult is None
-                  else norm_mult)
-            exp.noise_gen.set_state(gen_state)
-            new_vars, wv, alpha, is_updated, n_quar, degr = self._merge(
-                vars_before, deltas, nbt, ns_t, occ_t, w_t, nm)
-            if self._sentinel is None:
-                break
-            healthy, unorm = self._sentinel.check(vars_before, new_vars)
-            if (healthy or not exp.engine.screening
-                    or retries >= exp.max_round_retries):
-                break
-            retries += 1
-            norm_mult = exp._escalate_norm_mult(nm)
-            logger.warning(
-                "merge %d: unhealthy aggregate; re-merge %d/%d with norm "
-                "screen at %.2fx median", step, retries,
-                exp.max_round_retries, norm_mult)
-        if self._sentinel is not None and not healthy:
-            # retries exhausted (or unscreened): roll back to the last-good
-            # ring and record the step degraded
-            rolled_back = True
-            self._rollbacks += 1
-            new_vars = self._sentinel.rollback_target(vars_before)
-            logger.warning(
-                "merge %d: unhealthy aggregate after %d re-merges (update "
-                "norm %.3g vs EMA %.3g); rolled back to last-good model",
-                step, retries, unorm, self._sentinel.ema)
-        globals_dev = exp.engine.global_evals(new_vars)
+        with tel.span("async/merge"):
+            deltas, nbt, ns = self._gather(entries)
+            staleness = np.array([self.version - self._waves[w].base_version
+                                  for w, _ in entries], np.float32)
+            for v in staleness:
+                tel.histogram("staleness").observe(float(v))
+            w_full = np.zeros((self.K,), np.float32)
+            w_full[:B] = staleness_weights(staleness, self.weighting,
+                                           self.alpha)
+            occ = np.zeros((self.K,), bool)
+            occ[:B] = True
+            occ_t = to_device(occ, dev)
+            w_t = to_device(w_full, dev)
+            ns_t = to_device(ns, dev)
+            vars_before = exp.global_vars
+            # the health sentinel's loop: an unhealthy candidate re-merges
+            # the SAME buffer, with the same DP noise, under an escalated
+            # screen
+            gen_state = exp.noise_gen.get_state()
+            norm_mult: Optional[float] = None
+            retries, rolled_back = 0, False
+            healthy, unorm = True, 0.0
+            while True:
+                nm = (exp.engine.base_norm_mult if norm_mult is None
+                      else norm_mult)
+                exp.noise_gen.set_state(gen_state)
+                new_vars, wv, alpha, is_updated, n_quar, degr = self._merge(
+                    vars_before, deltas, nbt, ns_t, occ_t, w_t, nm)
+                if self._sentinel is None:
+                    break
+                healthy, unorm = self._sentinel.check(vars_before, new_vars)
+                if (healthy or not exp.engine.screening
+                        or retries >= exp.max_round_retries):
+                    break
+                retries += 1
+                norm_mult = exp._escalate_norm_mult(nm)
+                logger.warning(
+                    "merge %d: unhealthy aggregate; re-merge %d/%d with "
+                    "norm screen at %.2fx median", step, retries,
+                    exp.max_round_retries, norm_mult)
+            if self._sentinel is not None and not healthy:
+                # retries exhausted (or unscreened): roll back to the
+                # last-good ring and record the step degraded
+                rolled_back = True
+                self._rollbacks += 1
+                tel.counter("async/health_rollbacks").inc()
+                new_vars = self._sentinel.rollback_target(vars_before)
+                logger.warning(
+                    "merge %d: unhealthy aggregate after %d re-merges "
+                    "(update norm %.3g vs EMA %.3g); rolled back to "
+                    "last-good model", step, retries, unorm,
+                    self._sentinel.ema)
         exp.global_vars = new_vars
         self.version = step
         # free fully-consumed cohorts (merged and resolved)
@@ -604,41 +738,122 @@ class AsyncDriver:
             del self._waves[wid]
         if self._sentinel is not None and not rolled_back \
                 and not bool(degr):
+            # the ring commits at DISPATCH, so the sentinel observes merge
+            # S before merge S+1's candidate is checked against it, as on
+            # the serial path (the check above already synced the host)
             self._sentinel.commit(step, new_vars, unorm)
+        stream = self._eval_stream
+        keep = place_eval_inputs(new_vars, stream)
+
+        def battery() -> HostCopy:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                globals_dev = exp.engine.global_evals(new_vars)
+            return HostCopy((globals_dev, wv, alpha,
+                             torch.as_tensor(is_updated), n_quar, degr),
+                            stream)
+
+        # under the pipeline the eval worker thread enqueues the battery,
+        # so the next fill's waves are enqueued beside it
+        host = (PendingCopy(exp.eval_worker().submit(battery))
+                if self._pipeline else battery())
         extras = {"mode": "async", "buffer_occupancy": B,
                   "staleness_mean": float(staleness.mean()) if B else 0.0,
                   "staleness_max": float(staleness.max()) if B else 0.0,
                   "waves_dispatched": self.wave,
                   "arrivals_total": self._total_arrivals,
                   "virtual_time": self.clock}
-        dispatch_wall, n_dropped = self._dispatch_wall, self._pending_dropped
+        h = _MergeInFlight(
+            step=step, t0=t0, host=host, names=names,
+            adversaries=adversaries, occupancy=B, retries=retries,
+            rolled_back=rolled_back, n_dropped=self._pending_dropped,
+            dispatch_wall=self._dispatch_wall, extras=extras,
+            rows=self._pending_rows, keep=keep)
+        self._pending_rows = []
         self._pending_dropped = 0
         self._dispatch_wall = 0.0
-        # the merge's one blocking transfer
-        t_fin = time.perf_counter()
-        with exp.guard.watch("async/finalize"):
-            globals_, wv_h, alpha_h, is_upd_h, n_quar_h, degr_h = to_host(
-                (globals_dev, wv, alpha, torch.as_tensor(is_updated), n_quar,
-                 degr))
+        if capture_save and exp.params["save_model"] \
+                and exp.folder is not None:
+            h.snapshot = self._snapshot()
+            h.saved = RoundInFlight(
+                epoch=step, t0=t0, seg_epochs=[], agent_names=[],
+                adv_names=[], tasks_list=[], mask_list=[], payload=None,
+                vars_after=new_vars, fg_after=exp.fg_state,
+                rng_after=exp._snapshot_rng(),
+                health_after=(self._sentinel.state()
+                              if self._sentinel is not None else None))
+            h.saved.saved = HostCopy(exp._state_after(h.saved))
+        h.t_dispatch_end = time.perf_counter()
+        return h
+
+    def _finalize_merge(self, h: _MergeInFlight) -> Dict[str, Any]:
+        """Phase 2 of a merge: wait for its host copy, record the deferred
+        per-client rows (in resolution order), then the merge's. Under the
+        pipeline this runs one step late; everything it touches rides the
+        handle, so the recorded stream is byte-identical to the serial
+        composition."""
+        exp = self.exp
+        with exp.telemetry.span("async/finalize"):
+            t_fin = time.perf_counter()
+            # the merge's blocking wait
+            with exp.guard.watch("async/finalize"):
+                (globals_, wv_h, alpha_h, is_upd_h, n_quar_h,
+                 degr_h) = to_host(h.host.wait())
+        h.keep = None
         finalize_time = time.perf_counter() - t_fin
-        self._flush_pending_rows()
-        degraded = bool(degr_h) or rolled_back
+        if self._pipeline:
+            self._overlap_merges += 1
+            self._overlap_hidden_s += max(0.0, t_fin - h.t_dispatch_end)
+        for w in h.rows:
+            self._record_wave_rows(w)
+        degraded = bool(degr_h) or h.rolled_back
         exp.last_is_updated = bool(is_upd_h)
         exp.last_global_loss = float(globals_.clean.loss)
         if exp.is_poison_run:
             exp.last_backdoor_acc = float(globals_.poison.acc)
-        times = {"round_time": time.perf_counter() - t0,
-                 "dispatch_time": dispatch_wall,
+        times = {"round_time": time.perf_counter() - h.t0,
+                 "dispatch_time": h.dispatch_wall,
                  "finalize_time": finalize_time}
-        robust = {"n_quarantined": int(n_quar_h), "n_dropped": n_dropped,
-                  "n_retries": retries, "degraded": degraded}
-        exp._record_round(step, step, [str(n) for n in names], adversaries,
-                          globals_, wv_h, alpha_h, times, {**robust, **extras})
-        return {"epoch": step, "agents": names,
+        robust = {"n_quarantined": int(n_quar_h), "n_dropped": h.n_dropped,
+                  "n_retries": h.retries, "degraded": degraded}
+        exp._record_round(h.step, h.step, [str(n) for n in h.names],
+                          h.adversaries, globals_, wv_h, alpha_h, times,
+                          {**robust, **h.extras})
+        exp.telemetry.counter("async/merges").inc()
+        exp.telemetry.counter("async/updates_merged").inc(h.occupancy)
+        self._flush_merge_telemetry(h.step, robust, times)
+        return {"epoch": h.step, "agents": h.names,
                 "global_acc": float(globals_.clean.acc),
                 "backdoor_acc": (float(globals_.poison.acc)
                                  if exp.is_poison_run else None),
-                **times, **robust, **extras}
+                **times, **robust, **h.extras}
+
+    def _save_pending(self, h: _MergeInFlight):
+        """Checkpoint a finalized pipelined merge from its dispatch-time
+        capture. Runs AFTER _finalize_merge(h): save_model reads
+        last_global_loss (best-val), which finalize just set from this
+        merge's battery, as a serial save would; and the recorder now
+        holds exactly the rows a serial save would count."""
+        if h.saved is not None:
+            h.snapshot["recorder_rows"] = self.exp.recorder.row_counts()
+            self.exp.save_model(h.step, fl=h.saved,
+                                extra_aux={"async_state": h.snapshot})
+
+    def _flush_merge_telemetry(self, step, robust, times):
+        t = self.exp.telemetry
+        if not t.enabled:
+            return
+        t.counter("rounds").inc()
+        if robust.get("n_quarantined"):
+            t.counter("clients_quarantined").inc(robust["n_quarantined"])
+        if robust.get("n_dropped"):
+            t.counter("clients_dropped").inc(robust["n_dropped"])
+        if robust.get("n_retries"):
+            t.counter("round_retries").inc(robust["n_retries"])
+        if robust.get("degraded"):
+            t.counter("degraded_rounds").inc()
+        t.histogram("round_seconds").observe(times["round_time"])
+        t.flush_round(step)
 
     def _carry_starved_step(self) -> Dict[str, Any]:
         """starvation_policy "carry": the stream produced no arrivals for
@@ -648,6 +863,7 @@ class AsyncDriver:
         exp = self.exp
         t0 = time.perf_counter()
         step = self.version + 1
+        exp.telemetry.set_epoch(step)
         self._flush_pending_rows()  # cohorts resolved during the fill
         globals_ = to_host(exp.engine.global_evals(exp.global_vars))
         self.version = step
@@ -669,6 +885,8 @@ class AsyncDriver:
         zeros = np.zeros((self.K,), np.float32)
         exp._record_round(step, step, [], [], globals_, zeros, zeros, times,
                           {**robust, **extras})
+        exp.telemetry.counter("async/starved_steps").inc()
+        self._flush_merge_telemetry(step, robust, times)
         logger.warning("merge %d: starved stream carried as a degraded "
                        "no-op step (starvation_policy: carry)", step)
         return {"epoch": step, "agents": [],
@@ -695,8 +913,7 @@ class AsyncDriver:
                 d_parts.append(w.deltas)
                 n_parts.append(w.nbt)
             else:
-                idx = torch.tensor(lanes, dtype=torch.int64,
-                                   device=w.nbt.device)
+                idx = to_device(np.asarray(lanes, np.int64), w.nbt.device)
                 d_parts.append(ModelVars(*({k: v.index_select(0, idx)
                                             for k, v in tree.items()}
                                            for tree in w.deltas)))
@@ -721,9 +938,12 @@ class AsyncDriver:
 
     # ------------------------------------------------------------- recording
     def _resolve_wave(self, w: _Wave):
-        """Mark a fully-consumed cohort resolved and queue its per-client
-        rows for the next merge's record."""
+        """Mark a fully-consumed cohort resolved, enqueue its row payload's
+        host copy and queue its per-client rows for the next merge's
+        record (under the pipeline the wait for that copy rides the
+        deferred finalize)."""
         w.recorded = True
+        w.rows = HostCopy((w.metrics, w.locals_, w.delta_norms))
         self._pending_rows.append(w)
 
     def _flush_pending_rows(self):
@@ -737,9 +957,8 @@ class AsyncDriver:
         an interval-1 round's, keyed by the cohort's selection epoch."""
         exp = self.exp
         baseline = bool(exp.params["baseline"])
-        metrics, locals_, delta_norms = to_host(
-            (w.metrics, w.locals_, w.delta_norms))
-        w.metrics = w.locals_ = None
+        metrics, locals_, delta_norms = to_host(w.rows.wait())
+        w.metrics = w.locals_ = w.rows = None
         ppb = np.asarray(w.tasks.poisoning_per_batch)
         adv_slot = np.asarray(w.tasks.adv_slot)
         for c, name in enumerate(w.names):

@@ -14,10 +14,15 @@ poisons every sample; the poisoned eval set drops target-label images
 The stacked battery evaluates C client models over ONE shared plan: each
 test batch is fetched (and, unless `per_client_trigger`, stamped) once and
 only the forward passes are batched over clients (``torch.func.vmap``).
+
+Under ``overlap_eval`` a round's batteries run on a second CUDA stream of
+the same card (:func:`pick_eval_stream`, :func:`place_eval_inputs`), while
+the next round trains on the main stream; :func:`instrument_eval` gives
+each battery a synced telemetry span.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.func import vmap
@@ -25,6 +30,7 @@ from torch.func import vmap
 from dba_mod_tpu_torch.fl.device_data import DeviceData
 from dba_mod_tpu_torch.models import ModelDef, ModelVars
 from dba_mod_tpu_torch.ops.losses import cross_entropy_sum
+from dba_mod_tpu_torch.utils import telemetry
 
 
 class EvalResult(NamedTuple):
@@ -32,6 +38,40 @@ class EvalResult(NamedTuple):
     acc: torch.Tensor       # percentage
     correct: torch.Tensor
     count: torch.Tensor     # dataset_size / poison_data_count
+
+
+def instrument_eval(fn, name: str, batches: int = 0):
+    """Telemetry wrapper for an eval battery: each call runs under a span
+    ending at a device sync (the un-synced call time is only the launch),
+    and counts `batches` test batches into ``eval/batches``. A passthrough
+    while telemetry is off, so the batteries keep deferring their sync to
+    the round's finalize and round pipelining is unaffected."""
+    return telemetry.instrument(fn, name, batches=batches)
+
+
+def pick_eval_stream(device: torch.device,
+                     overlap: bool) -> Optional[torch.cuda.Stream]:
+    """The stream the overlap_eval batteries run on: a second CUDA stream
+    of the round's card, so round N's batteries run beside round N+1's
+    training on the main stream. None (the current stream) without
+    overlap and on the CPU."""
+    if not overlap or device.type != "cuda":
+        return None
+    return torch.cuda.Stream(device)
+
+
+def place_eval_inputs(operands: Any, stream: Optional[torch.cuda.Stream]
+                      ) -> Any:
+    """Order the eval stream after everything the main stream has queued,
+    which includes the round that produced `operands` (the superseded
+    round's snapshots: the pre-round model, the pre-fault deltas, the new
+    model). The caller holds `operands` until the batteries' host copy has
+    landed, so the caching allocator cannot hand their memory to the next
+    round while the eval stream still reads it. A passthrough without a
+    stream."""
+    if stream is not None:
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+    return operands
 
 
 def _finish(loss_sum, correct, count) -> EvalResult:

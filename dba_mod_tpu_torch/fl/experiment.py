@@ -25,16 +25,35 @@ writes carries the full-state sidecar and an integrity manifest, so
 ``resumed_model: auto`` continues the killed run's trajectory exactly, in
 its own run folder. ``mode: async`` hands the loop to the buffered-async
 engine (fl/async_rounds.py) under the same guard; its streaming state rides
-the sidecar under ``async_state``. Telemetry, round overlap and
-multi-device runs are ROADMAP A17-A18; config.check_ported rejects their
-knobs.
+the sidecar under ``async_state``.
+
+Observability: ``telemetry: true`` times every phase in synced spans
+(``round/dispatch``, ``round/train``, ``round/aggregate``, ``eval/*``,
+``round/finalize``, ``round/checkpoint``; utils/telemetry.py) and runs the
+loop sequentially; ``profile_dir`` traces the first post-warm-up round with
+torch.profiler into that folder; ``tensorboard: true`` mirrors the recorder
+rows into ``<run>/tb``.
+
+Round overlap: ``pipeline_rounds`` dispatches round N+1 before round N's
+host work (fetch, recording, checkpoint) runs; ``overlap_eval`` also moves
+round N's eval batteries to a second CUDA stream
+(:meth:`Experiment._dispatch_overlap`), enqueued by a worker thread beside
+N+1's training on the main stream (the launch queue lets the host run only
+a short way ahead of the card, so one thread enqueueing both would
+serialize them). Both record byte-identical outputs: a dispatch ends by
+enqueueing its payload's copy into pinned host memory (:class:`HostCopy`),
+finalize waits for that copy only, and checkpoints write host copies
+captured at dispatch on a background writer.
+Multi-device runs are ROADMAP A18; config.check_ported rejects them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import random
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
@@ -52,8 +71,11 @@ from dba_mod_tpu_torch.data.partition import (equal_split_indices,
 from dba_mod_tpu_torch.fl import faults as flt
 from dba_mod_tpu_torch.fl.device_data import (make_image_device_data,
                                                make_loan_device_data)
+from dba_mod_tpu_torch.fl.evaluation import (pick_eval_stream,
+                                             place_eval_inputs)
 from dba_mod_tpu_torch.fl.rounds import (REASON_NAMES, EvalPlans,
-                                         HealthSentinel, RoundEngine)
+                                         HealthSentinel, RoundEngine,
+                                         with_batteries)
 from dba_mod_tpu_torch.fl.selection import select_agents
 from dba_mod_tpu_torch.fl.state import build_client_tasks
 from dba_mod_tpu_torch.models import ModelVars, build_model
@@ -61,7 +83,7 @@ from dba_mod_tpu_torch.models.loan import (draw_dropout_masks,
                                            dropout_generator)
 from dba_mod_tpu_torch.ops.aggregation import foolsgold_init
 from dba_mod_tpu_torch.ops.sgd import loan_adaptive_poison_lr
-from dba_mod_tpu_torch.utils import run_guard
+from dba_mod_tpu_torch.utils import run_guard, telemetry
 from dba_mod_tpu_torch.utils.device import pin_float32_math, resolve_device
 from dba_mod_tpu_torch.utils.forensics import ForensicsWriter
 from dba_mod_tpu_torch.utils.html import dict_html
@@ -70,24 +92,99 @@ from dba_mod_tpu_torch.utils.recorder import Recorder
 logger = logging.getLogger("dba_mod_tpu_torch")
 
 
-def to_host(tree: Any) -> Any:
-    """Copy a payload tree (NamedTuples, lists, tuples, dicts of tensors)
-    to numpy — the round's one device→host transfer."""
+def map_tensors(tree: Any, fn) -> Any:
+    """`fn` applied to every tensor of a payload tree (NamedTuples, lists,
+    tuples, dicts); other leaves pass through."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return fn(tree)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_host(t) for t in tree))
+        return type(tree)(*(map_tensors(t, fn) for t in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_host(t) for t in tree)
+        return type(tree)(map_tensors(t, fn) for t in tree)
     if isinstance(tree, dict):
-        return {k: to_host(v) for k, v in tree.items()}
+        return {k: map_tensors(v, fn) for k, v in tree.items()}
     return tree
+
+
+def to_host(tree: Any) -> Any:
+    """Copy a payload tree to numpy (a blocking copy for CUDA tensors)."""
+    return map_tensors(tree, lambda t: t.detach().cpu().numpy())
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    if not t.is_cuda:
+        return t.detach()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+class HostCopy:
+    """A payload tree's device→host copy, enqueued now and waited for
+    later. CUDA tensors are copied into pinned host buffers by non-blocking
+    copies on `stream` (the current stream when None), and an event is
+    recorded after them, so :meth:`wait` waits for that event only — not
+    for the work queued on the stream after it (the next round's). The
+    device tensors stay referenced until the copy has landed. CPU tensors
+    are taken as they are."""
+
+    def __init__(self, tree: Any, stream: Optional[torch.cuda.Stream] = None):
+        self._src = tree
+        self._event = None
+        dev = telemetry.cuda_device_of(tree)
+        if dev is None:
+            self._host = map_tensors(tree, torch.Tensor.detach)
+            return
+        stream = stream or torch.cuda.current_stream(dev)
+        with torch.cuda.stream(stream):
+            self._host = map_tensors(tree, _pinned_copy)
+            self._event = torch.cuda.Event()
+            self._event.record(stream)
+
+    @property
+    def host(self) -> Any:
+        """The host tree, which holds the copy once :meth:`wait` (or a
+        wait on another thread) has returned."""
+        return self._host
+
+    def wait(self) -> Any:
+        """The host tree (CPU tensors), once the copy has landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = None
+        return self._host
+
+
+class PendingCopy:
+    """A :class:`HostCopy` still being made on the eval worker thread (the
+    batteries enqueue there, then their copy); :meth:`wait` waits for the
+    thread, then for the copy, and re-raises the thread's error."""
+
+    def __init__(self, future: "Future[HostCopy]"):
+        self._future = future
+
+    def wait(self) -> Any:
+        return self._future.result().wait()
+
+
+@dataclasses.dataclass
+class RoundPlan:
+    """A round's host-side plan: who trains, on which batches."""
+    seg_epochs: List[int]
+    agent_names: List[Any]
+    adv_names: List[Any]
+    tasks_list: List[Any]
+    idx_seq: np.ndarray
+    mask_seq: np.ndarray
+    mask_list: List[Any]
+    num_samples: np.ndarray
+    dropout_seq: Optional[List]
 
 
 @dataclasses.dataclass
 class RoundInFlight:
-    """Device handles + host context of a dispatched round, awaiting its one
-    blocking transfer in `finalize_round`."""
+    """Device handles + host context of a dispatched round, awaiting its
+    host copy in `finalize_round`."""
     epoch: int
     t0: float                    # perf_counter at dispatch start
     seg_epochs: List[int]
@@ -102,6 +199,25 @@ class RoundInFlight:
     # pre-round state was carried forward
     n_retries: int = 0
     forced_degraded: bool = False
+    # the state after this round, captured at dispatch: under pipelining
+    # the live attributes already belong to round N+1 when round N
+    # checkpoints, so save_model saves these
+    vars_after: Any = None       # global ModelVars
+    fg_after: Any = None         # FoolsGoldState
+    rng_after: Optional[Dict[str, Any]] = None
+    deltas_after: Any = None     # the stale lane's replay source (or None)
+    health_after: Optional[Dict[str, Any]] = None
+    # the payload's host copy (enqueued at the end of dispatch, or by the
+    # eval worker for a pipelined overlapped round), and the captured
+    # state's (pipelined runs that save)
+    host: Any = None             # HostCopy or PendingCopy
+    saved: Optional[HostCopy] = None
+    # overlap_eval: the round's batteries ran on the eval stream; `keep`
+    # holds their inputs until the host copy has landed, and
+    # eval_dispatch_t is the perf_counter when they were handed on
+    overlapped: bool = False
+    keep: Any = None
+    eval_dispatch_t: float = 0.0
 
 
 class Experiment:
@@ -138,15 +254,29 @@ class Experiment:
             params.write_yaml(self.folder)
         else:
             self.folder = params.make_run_folder()
+        # one run-folder log.txt handler that follows the active experiment
+        telemetry.setup_logging(self.folder)
         if self.folder is not None:
             (self.folder / "params.html").write_text(
                 dict_html(params.raw, params.current_time))
         self.recorder = Recorder(self.folder,
                                  tensorboard=bool(params.get("tensorboard")))
+        tb_sink = (self.recorder._scalar if self.recorder._tb is not None
+                   else None)
+        # telemetry (utils/telemetry.py): spans, metrics, kernel builds and
+        # device memory; files land in telemetry_dir (default the run
+        # folder; in memory when neither exists). The instance is the
+        # process-wide current one, so the spans of shared code
+        # (checkpoint.py, the batteries) resolve to it
+        tdir = str(params.get("telemetry_dir", "") or "")
+        self.telemetry = telemetry.configure(
+            enabled=bool(params.get("telemetry", False)),
+            folder=Path(tdir) if tdir else self.folder, tb_sink=tb_sink,
+            device=self.device)
         # defense forensics: per-client rows from the round's ForensicStats
         # slot; no writer, no files and no device work when off
         self.forensics_writer: Optional[ForensicsWriter] = (
-            ForensicsWriter(self.folder)
+            ForensicsWriter(self.folder, tb_sink=tb_sink)
             if bool(params.get("forensics", False)) else None)
         seed = int(params.get("random_seed", 1))
         self.select_rng = random.Random(seed)
@@ -229,6 +359,23 @@ class Experiment:
         # max client, quantized to _STEP_BUCKET (identical numerics: dropped
         # steps were fully-masked no-ops)
         self.dynamic_steps = bool(params.get("dynamic_steps", False))
+        # overlap_eval: round N's batteries run on a second stream of the
+        # card (none on the CPU), beside round N+1's train on the main one
+        # (_dispatch_overlap, the pipelined loop in _run_rounds)
+        self._overlap = bool(params.get("overlap_eval", False))
+        self._eval_stream = pick_eval_stream(self.device, self._overlap)
+        self._overlap_rounds = 0
+        self._overlap_hidden_s = 0.0  # cumulative eval+fetch seconds hidden
+        self._overlap_wait_s = 0.0    # cumulative finalize blocking seconds
+        # rounds whose finalize returned while the card's main stream still
+        # ran later work (the next round's, under pipelining)
+        self._finalized_ahead = 0
+        # set inside the pipelined loop: dispatch then hands an overlapped
+        # round's batteries to the eval worker thread, and, when the run
+        # saves, captures the round's state in host memory for save_model
+        self._pipelining = False
+        self._eval_worker: Optional[ThreadPoolExecutor] = None
+        self.async_driver = None   # the AsyncDriver of a mode: async run
         self._apply_resume_aux()
 
     # ---------------------------------------------------------------- resume
@@ -454,15 +601,37 @@ class Experiment:
     def run_round(self, epoch: int) -> Dict[str, Any]:
         return self.finalize_round(self.dispatch_round(epoch))
 
+    @property
+    def _telemetry_split(self) -> bool:
+        """Synced per-phase spans only while THIS experiment's telemetry is
+        the process-wide current instance: after another Experiment took
+        over, the batteries' spans land on that one, so the round runs
+        without the phase syncs (its dispatch/finalize spans, recorded on
+        this instance, stay honest)."""
+        return (self.telemetry.enabled and not self.engine.robust
+                and telemetry.current() is self.telemetry)
+
     def dispatch_round(self, epoch: int) -> RoundInFlight:
+        """Host planning and the round's device work under the
+        ``round/dispatch`` span, ending with the payload's host copy
+        enqueued (on the eval stream for an overlapped round) and, in a
+        pipelined run that saves, the host copy of the state after the
+        round. Its perf_counter duration is ``dispatch_time``."""
         t0 = time.perf_counter()
-        fl = self._dispatch(epoch, t0)
+        self.telemetry.set_epoch(epoch)
+        with self.telemetry.span("round/dispatch"):
+            fl = self._dispatch(epoch, t0)
+            if fl.host is None:
+                fl.host = HostCopy(fl.payload)
+            if (self._pipelining and self.params["save_model"]
+                    and self.folder is not None):
+                fl.saved = HostCopy(self._state_after(fl))
         fl.dispatch_time = time.perf_counter() - t0
         return fl
 
-    def _dispatch(self, epoch: int, t0: float) -> RoundInFlight:
-        """Host-side planning + the round's device work; the results stay
-        on the device until `finalize_round`."""
+    def _plan_round(self, epoch: int) -> RoundPlan:
+        """Host-side planning: agent selection, LOAN's poison probe, the
+        task rows and batch plans of every segment, the dropout masks."""
         params = self.params
         agent_names, adv_names = select_agents(
             params, epoch, self.participants, self.benign_names,
@@ -492,27 +661,53 @@ class Experiment:
             idx_list.append(plan.idx)
             mask_list.append(plan.mask)
         idx_seq, mask_seq = np.stack(idx_list), np.stack(mask_list)
-        dropout_seq = self._dropout_masks(epoch, idx_seq.shape)
+        return RoundPlan(seg_epochs, agent_names, adv_names, tasks_list,
+                         idx_seq, mask_seq, mask_list, num_samples,
+                         self._dropout_masks(epoch, idx_seq.shape))
+
+    def _dispatch(self, epoch: int, t0: float) -> RoundInFlight:
+        """Host-side planning + the round's device work; the results stay
+        on the device until `finalize_round`."""
+        plan = self._plan_round(epoch)
+        if self._overlap:
+            return self._dispatch_overlap(epoch, t0, plan)
         if self.engine.robust:
-            return self._dispatch_robust(epoch, t0, seg_epochs, agent_names,
-                                         adv_names, tasks_list, idx_seq,
-                                         mask_seq, mask_list, num_samples,
-                                         dropout_seq)
+            return self._dispatch_robust(epoch, t0, plan)
+        vars_before, fg_before = self.global_vars, self.fg_state
         new_vars, new_fg, payload, _ = self.engine.round_fn(
-            self.global_vars, tasks_list, idx_seq, mask_seq, self.noise_gen,
-            num_samples=num_samples, fg_state=self.fg_state,
-            dropout_seq=dropout_seq)
+            vars_before, plan.tasks_list, plan.idx_seq, plan.mask_seq,
+            self.noise_gen, num_samples=plan.num_samples, fg_state=fg_before,
+            dropout_seq=plan.dropout_seq,
+            tel=self.telemetry if self._telemetry_split else telemetry.NULL)
         rolled = False
         if self._sentinel is not None:
             new_vars, payload, rolled = self._health_gate(
-                epoch, self.global_vars, new_vars, payload)
+                epoch, vars_before, new_vars, payload)
             if rolled:
-                new_fg = self.fg_state
+                new_fg = fg_before
+        return self._commit(epoch, t0, plan, payload, new_vars, new_fg,
+                            forced=rolled)
+
+    def _commit(self, epoch: int, t0: float, plan: RoundPlan, payload,
+                new_vars: ModelVars, new_fg, *, n_retries: int = 0,
+                forced: bool = False, deltas_out=None) -> RoundInFlight:
+        """Commit the round's decided model update (round N+1 may be
+        dispatched from here on) and return its in-flight record, with the
+        state after it captured for save_model."""
         self.global_vars, self.fg_state = new_vars, new_fg
-        return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
-                             agent_names=agent_names, adv_names=adv_names,
-                             tasks_list=tasks_list, mask_list=mask_list,
-                             payload=payload, forced_degraded=rolled)
+        stale = self.engine.fault_cfg.stale_enabled
+        if stale:
+            self._prev_deltas = deltas_out
+        return RoundInFlight(
+            epoch=epoch, t0=t0, seg_epochs=plan.seg_epochs,
+            agent_names=plan.agent_names, adv_names=plan.adv_names,
+            tasks_list=plan.tasks_list, mask_list=plan.mask_list,
+            payload=payload, n_retries=n_retries, forced_degraded=forced,
+            vars_after=new_vars, fg_after=new_fg,
+            rng_after=self._snapshot_rng(),
+            deltas_after=deltas_out if stale else None,
+            health_after=(self._sentinel.state()
+                          if self._sentinel is not None else None))
 
     def _loan_poisons(self, epoch: int, agent_names) -> bool:
         """A poisoned LOAN run in which a selected adversary poisons at
@@ -582,12 +777,14 @@ class Experiment:
 
     def _health_check(self, epoch: int, vars_before: ModelVars,
                       new_vars: ModelVars):
-        """The sentinel's decision on a merged model: (model to commit,
-        rolled back). A healthy merge is committed to the EMA and ring
-        here."""
+        """The sentinel's decision on a merged model, made before anything
+        of round N+1 commits: (model to commit, rolled back). A healthy
+        merge is committed to the EMA and ring here."""
         healthy, unorm = self._sentinel.check(vars_before, new_vars)
         if healthy:
             self._sentinel.commit(epoch, new_vars, unorm)
+        else:
+            self.telemetry.counter("health_rollbacks").inc()
         self._note_health(epoch, healthy, unorm)
         if healthy:
             return new_vars, False
@@ -622,17 +819,28 @@ class Experiment:
         floored at 1× the median."""
         return 10.0 if cur <= 0 else max(cur / 2.0, 1.0)
 
-    def _dispatch_robust(self, epoch, t0, seg_epochs, agent_names, adv_names,
-                         tasks_list, idx_seq, mask_seq, mask_list,
-                         num_samples, dropout_seq=None) -> RoundInFlight:
-        """The robust round: run it, then, only when screening is on, check
-        that the aggregated model is finite (one host sync) — and, with the
-        sentinel on, healthy — and re-run the round from the captured
+    def _dispatch_robust(self, epoch: int, t0: float,
+                         plan: RoundPlan) -> RoundInFlight:
+        """The robust round, serial: the retry loop over the whole round."""
+        (new_vars, new_fg, payload, deltas_out, _, retries,
+         forced) = self._robust_attempts(epoch, plan, core=False)
+        return self._commit(epoch, t0, plan, payload, new_vars, new_fg,
+                            n_retries=retries, forced=forced,
+                            deltas_out=deltas_out)
+
+    def _robust_attempts(self, epoch: int, plan: RoundPlan, core: bool):
+        """The robust round's retry loop: run it (the round, or with `core`
+        the round core without its batteries), then, only when screening
+        is on, check that the aggregated model is finite (one host sync) —
+        and, with the sentinel on, healthy — and re-run from the captured
         pre-round state with an escalated norm screen, up to
         max_round_retries. When retries run out the round is degraded: the
         last-good model (the pre-round state without a ring) is carried
-        forward and the global battery re-run on it."""
+        forward, and the serial round's global battery re-run on it.
+        Returns (new_vars, new_fg, payload, deltas_out, eval_in, retries,
+        forced)."""
         vars_before, fg_before = self.global_vars, self.fg_state
+        fn = self.engine.core_fn if core else self.engine.round_fn
         # every attempt draws the same DP noise, as the JAX package's fixed
         # per-round key does
         gen_state = self.noise_gen.get_state()
@@ -641,11 +849,14 @@ class Experiment:
         finite, healthy, unorm = True, True, 0.0
         while True:
             self.noise_gen.set_state(gen_state)
-            new_vars, new_fg, payload, deltas_out = self.engine.round_fn(
-                vars_before, tasks_list, idx_seq, mask_seq, self.noise_gen,
-                num_samples=num_samples, fg_state=fg_before,
-                dropout_seq=dropout_seq,
-                **self._robust_round_args(epoch, num_samples, norm_mult))
+            with self.telemetry.span("round/compute"):
+                out = fn(vars_before, plan.tasks_list, plan.idx_seq,
+                         plan.mask_seq, self.noise_gen,
+                         num_samples=plan.num_samples, fg_state=fg_before,
+                         dropout_seq=plan.dropout_seq,
+                         **self._robust_round_args(epoch, plan.num_samples,
+                                                   norm_mult))
+            new_vars, new_fg, payload, deltas_out = out[:4]
             if not self.engine.screening:
                 # unscreened injection: faults flow through; with no norm
                 # screen to escalate an unhealthy merge goes straight to
@@ -654,7 +865,8 @@ class Experiment:
                     healthy, unorm = self._sentinel.check(vars_before,
                                                           new_vars)
                 break
-            with self.guard.watch("round/screen_sync"):
+            with self.guard.watch("round/screen_sync"), \
+                    self.telemetry.span("round/screen_sync"):
                 finite = bool(payload[9].global_finite)  # the one host sync
             healthy, unorm = True, 0.0
             if finite and self._sentinel is not None:
@@ -683,33 +895,125 @@ class Experiment:
             new_vars = (self._sentinel.rollback_target(vars_before)
                         if self._sentinel is not None else vars_before)
             new_fg = fg_before
-            payload = (payload[:1] + (self.engine.global_evals(new_vars),)
-                       + payload[2:])
+            if self._sentinel is not None and not healthy:
+                self.telemetry.counter("health_rollbacks").inc()
+            if not core:
+                payload = (payload[:1]
+                           + (self.engine.global_evals(new_vars),)
+                           + payload[2:])
         elif self._sentinel is not None:
             self._sentinel.commit(epoch, new_vars, unorm)
         if self._sentinel is not None:
             self._note_health(epoch, not forced, unorm)
-        self.global_vars, self.fg_state = new_vars, new_fg
-        if self.engine.fault_cfg.stale_enabled:
-            self._prev_deltas = deltas_out
-        return RoundInFlight(epoch=epoch, t0=t0, seg_epochs=seg_epochs,
-                             agent_names=agent_names, adv_names=adv_names,
-                             tasks_list=tasks_list, mask_list=mask_list,
-                             payload=payload, n_retries=retries,
-                             forced_degraded=forced)
+        return (new_vars, new_fg, payload, deltas_out,
+                out[4] if core else None, retries, forced)
+
+    def _dispatch_overlap(self, epoch: int, t0: float,
+                          plan: RoundPlan) -> RoundInFlight:
+        """The overlap scheduler (overlap_eval): run the round CORE (train →
+        [faults → screen] → aggregate) on the main stream, decide and
+        commit the model update, THEN enqueue round N's eval batteries on
+        the eval stream against the superseded round's snapshots. The
+        pipelined loop dispatches round N+1's core right after this
+        returns, so the batteries and round N's host work run beside N+1's
+        training. Contracts:
+
+        * bit identity — the batteries are the functions round_fn runs, on
+          the same inputs (pre-fault deltas, the pre-round model, the
+          committed model); nothing they read is written in place later;
+        * sentinel before commit — the health check gates the merged model
+          between the core and the battery dispatch, so the sentinel
+          observes round N before anything of N+1 is enqueued;
+        * retry cancellation — a rejected robust attempt never has a
+          battery in flight: the batteries are enqueued once, for the
+          accepted (or degraded) attempt, whose train deltas are those of
+          every attempt (the plans and the start state are fixed)."""
+        engine = self.engine
+        vars_before, fg_before = self.global_vars, self.fg_state
+        if engine.robust:
+            (new_vars, new_fg, payload, deltas_out, eval_in, retries,
+             forced) = self._robust_attempts(epoch, plan, core=True)
+        else:
+            new_vars, new_fg, payload, deltas_out, eval_in = engine.core_fn(
+                vars_before, plan.tasks_list, plan.idx_seq, plan.mask_seq,
+                self.noise_gen, num_samples=plan.num_samples,
+                fg_state=fg_before, dropout_seq=plan.dropout_seq,
+                tel=(self.telemetry if self._telemetry_split
+                     else telemetry.NULL))
+            retries, forced = 0, False
+            if self._sentinel is not None:
+                new_vars, forced = self._health_check(epoch, vars_before,
+                                                      new_vars)
+                if forced:
+                    new_fg = fg_before
+        fl = self._commit(epoch, t0, plan, payload, new_vars, new_fg,
+                          n_retries=retries, forced=forced,
+                          deltas_out=deltas_out)
+        stream = self._eval_stream
+        fl.keep = place_eval_inputs((vars_before, new_vars, eval_in), stream)
+
+        def batteries() -> HostCopy:
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                evals = engine.eval_batteries(vars_before, new_vars,
+                                              plan.tasks_list, eval_in)
+            return HostCopy(with_batteries(payload, *evals), stream)
+
+        # in the pipelined loop a worker thread enqueues them: the host
+        # runs only ~0.15 s ahead of the card (the launch queue is
+        # shallow), so one thread enqueueing both the batteries and round
+        # N+1 would serialize them
+        fl.host = (PendingCopy(self.eval_worker().submit(batteries))
+                   if self._pipelining else batteries())
+        fl.overlapped = True
+        fl.eval_dispatch_t = time.perf_counter()
+        return fl
+
+    def eval_worker(self) -> ThreadPoolExecutor:
+        """The one thread that enqueues overlapped batteries, in order
+        (made at first use; run() shuts it down)."""
+        if self._eval_worker is None:
+            self._eval_worker = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="dba-eval")
+        return self._eval_worker
 
     def finalize_round(self, fl: RoundInFlight) -> Dict[str, Any]:
         t_fin = time.perf_counter()
-        # the round's one blocking transfer — where a wedged runtime
+        self.telemetry.set_epoch(fl.epoch)
+        # the wait for the round's host copy — where a wedged runtime
         # stalls, hence the watchdog zone
-        with self.guard.watch("round/finalize"):
+        with self.guard.watch("round/finalize"), \
+                self.telemetry.span("round/finalize"):
             (locals_, globals_, metrics, delta_norms, wv, alpha,
              batches, is_updated, seg_locals, rstats,
-             fstats) = to_host(fl.payload)
+             fstats) = to_host(fl.host.wait())
+        fl.keep = None
         finalize_time = time.perf_counter() - t_fin
+        if (self.device.type == "cuda"
+                and not torch.cuda.current_stream(self.device).query()):
+            self._finalized_ahead += 1
+        # under pipelining round_time spans the overlap with the next
+        # round's dispatch; dispatch_time and finalize_time are the honest
+        # per-phase components
         times = {"round_time": time.perf_counter() - fl.t0,
                  "dispatch_time": fl.dispatch_time,
                  "finalize_time": finalize_time}
+        if fl.overlapped:
+            # of the wall time since the batteries were enqueued, finalize
+            # only BLOCKED for finalize_time: the rest ran behind whatever
+            # the caller dispatched in between (round N+1's core under the
+            # pipelined loop)
+            hidden = max(0.0, time.perf_counter() - fl.eval_dispatch_t
+                         - finalize_time)
+            self._overlap_rounds += 1
+            self._overlap_hidden_s += hidden
+            self._overlap_wait_s += finalize_time
+            t = self.telemetry
+            if t.enabled:
+                t.counter("overlap/rounds").inc()
+                t.gauge("overlap/hidden_eval_s").set(self._overlap_hidden_s)
+                t.gauge("overlap/dispatch_ahead_depth").set(1.0)
+                t.histogram("overlap/eval_wait_s").observe(finalize_time)
         self.last_is_updated = bool(is_updated)
         self.last_global_loss = float(globals_.clean.loss)
         if self.is_poison_run:
@@ -730,11 +1034,35 @@ class Experiment:
         if self.forensics_writer is not None and fstats is not None:
             self._record_forensics(fl, locals_, delta_norms, wv, alpha,
                                    fstats, robust)
+        self._flush_round_telemetry(fl, robust, delta_norms, times)
         return {"epoch": fl.epoch, "agents": fl.agent_names,
                 "global_acc": float(globals_.clean.acc),
                 "backdoor_acc": (float(globals_.poison.acc)
                                  if self.is_poison_run else None),
                 **times, **robust}
+
+    def _flush_round_telemetry(self, fl: RoundInFlight, robust: Dict[str,
+                               Any], delta_norms, times) -> None:
+        """Per-round metrics update + flush: one telemetry.jsonl line with
+        the round's counters and gauges and the span-duration and
+        delta-norm histogram windows (mirrored to TensorBoard when
+        wired)."""
+        t = self.telemetry
+        if not t.enabled:
+            return
+        t.counter("rounds").inc()
+        if fl.n_retries:
+            t.counter("round_retries").inc(fl.n_retries)
+        if robust.get("n_quarantined"):
+            t.counter("clients_quarantined").inc(robust["n_quarantined"])
+        if robust.get("n_dropped"):
+            t.counter("clients_dropped").inc(robust["n_dropped"])
+        if robust.get("degraded"):
+            t.counter("degraded_rounds").inc()
+        for n in np.asarray(delta_norms).reshape(-1):
+            t.histogram("delta_norm").observe(float(n))
+        t.histogram("round_seconds").observe(times["round_time"])
+        t.flush_round(fl.epoch)
 
     # ------------------------------------------------------------- recording
     def _record_forensics(self, fl: RoundInFlight, locals_, delta_norms,
@@ -951,67 +1279,153 @@ class Experiment:
                                                True)))
         return self._ckpt_mgr
 
-    def save_model(self, epoch: int,
+    def _state_after(self, fl: Optional[RoundInFlight]) -> Dict[str, Any]:
+        """What a snapshot saves of the device state: the global model,
+        FoolsGold's memory and (stale lane) the received deltas — after
+        round `fl`, or the live ones."""
+        if fl is None:
+            vars_, fg, prev = self.global_vars, self.fg_state, \
+                self._prev_deltas
+        else:
+            vars_, fg, prev = fl.vars_after, fl.fg_after, fl.deltas_after
+        if not self.engine.fault_cfg.stale_enabled:
+            prev = None
+        return {"vars": vars_, "fg": fg.memory, "prev": prev}
+
+    def save_model(self, epoch: int, fl: Optional[RoundInFlight] = None,
+                   async_save: bool = False,
                    extra_aux: Optional[Dict[str, Any]] = None) -> None:
         """Checkpoint the round's post-aggregation state: model_last, plus
         .epoch_N for save_on_epochs and .best whenever the global eval loss
         improves (helper.py:433-435). Every snapshot gets the full-state
         sidecar, then its manifest (covering the sidecar); a snapshot being
         overwritten is cloned to .prev until its replacement verifies;
-        retention GC runs last. `extra_aux` merges more keys into the
-        sidecar: the async engine's streaming state (``async_state``)."""
+        retention GC runs last. With `fl` the state captured at that
+        round's dispatch is saved (under pipelining the live attributes
+        already belong to the next round); `async_save` queues the writes
+        on the checkpoint writer thread (run() waits for it before it
+        returns). `extra_aux` merges more keys into the sidecar: the async
+        engine's streaming state (``async_state``)."""
         params = self.params
         if not params["save_model"] or self.folder is None:
             return
+        with self.telemetry.span("round/checkpoint"):
+            self._save(epoch, fl, async_save, extra_aux)
+
+    def _save(self, epoch: int, fl: Optional[RoundInFlight],
+              async_save: bool, extra_aux: Optional[Dict[str, Any]]) -> None:
         t0 = time.perf_counter()
         mgr = self.checkpoint_manager
+        if fl is None:
+            src, rng = self._state_after(None), self._snapshot_rng()
+            health = (self._sentinel.state() if self._sentinel is not None
+                      else None)
+        else:
+            rng, health = fl.rng_after, fl.health_after
+            if fl.saved is None:
+                src = self._state_after(fl)
+            elif async_save:
+                # the writer waits for the copy, the caller does not
+                ckpt.async_job(fl.saved.wait)
+                src = fl.saved.host
+            else:
+                src = fl.saved.wait()
         path = self.folder / "model_last.pt.tar"
-        lr = float(params["lr"])
+        lr = float(self.params["lr"])
         written = [path]
-        if epoch in list(params["save_on_epochs"]):
+        if epoch in list(self.params["save_on_epochs"]):
             written.append(Path(str(path) + f".epoch_{epoch}"))
         if self.last_global_loss < self.best_loss:
             written.append(Path(str(path) + ".best"))
             self.best_loss = self.last_global_loss
-        mgr.prepare_overwrite(written)
+        # (the async keyword only when set: wrappers of the plain calls
+        # keep working)
+        kw = {"async_save": True} if async_save else {}
+        mgr.prepare_overwrite(written, **kw)
         # the sidecar (a deviation from the reference, which loses these on
         # restart): every snapshot gets one, so resuming from .epoch_N or
         # .best does not silently reset the defense either
         aux = {"epoch": int(epoch),
-               "fg_memory": self.fg_state.memory.detach().cpu(),
+               "fg_memory": src["fg"].detach().cpu(),
                "best_loss": float(self.best_loss),
-               "last_backdoor_acc": self.last_backdoor_acc,
-               **self._snapshot_rng()}
-        if self.engine.fault_cfg.stale_enabled and \
-                self._prev_deltas is not None:
+               "last_backdoor_acc": self.last_backdoor_acc, **rng}
+        if src["prev"] is not None:
             # the stale lane's replay source: what the server received this
             # round (model-sized × C; the lane is opt-in)
             aux["prev_deltas"] = {
                 "params": {k: v.detach().cpu()
-                           for k, v in self._prev_deltas.params.items()},
+                           for k, v in src["prev"].params.items()},
                 "batch_stats": {k: v.detach().cpu() for k, v in
-                                self._prev_deltas.batch_stats.items()}}
-        if self._sentinel is not None:
-            aux["health"] = self._sentinel.state()
+                                src["prev"].batch_stats.items()}}
+        if health is not None:
+            aux["health"] = health
         if extra_aux:
             aux.update(extra_aux)
         for p in written:
-            ckpt.save_checkpoint(p, self.global_vars, epoch, lr)
-            ckpt.save_aux_state(p, aux)
-        mgr.note_saved(written, epoch)
-        mgr.gc()
-        logger.info("epoch %d: saved %d snapshot(s) in %.3fs: %s", epoch,
-                    len(written), time.perf_counter() - t0,
-                    [p.name for p in written])
+            ckpt.save_checkpoint(p, src["vars"], epoch, lr,
+                                 async_save=async_save)
+            ckpt.save_aux_state(p, aux, async_save=async_save)
+        mgr.note_saved(written, epoch, **kw)
+        mgr.gc(**kw)
+        logger.info("epoch %d: %s %d snapshot(s) in %.3fs: %s", epoch,
+                    "queued" if async_save else "saved", len(written),
+                    time.perf_counter() - t0, [p.name for p in written])
 
     def run(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         """Run rounds start_epoch..epochs (the config's when None) under
         the guard: SIGTERM/SIGINT handlers are installed around the loop
         (and the previous ones restored after) when graceful_shutdown is
-        on."""
+        on. Every exit path waits for the queued checkpoint writes and
+        writes the telemetry trace and summary."""
         self.interrupted = False
         with self.guard:
-            return self._run_rounds(epochs)
+            try:
+                return self._run_rounds(epochs)
+            finally:
+                try:
+                    if self._eval_worker is not None:
+                        self._eval_worker.shutdown(wait=True)
+                        self._eval_worker = None
+                    with self.guard.watch("checkpoint/wait_async"):
+                        ckpt.wait_for_async_saves()
+                finally:
+                    self._finish_telemetry()
+
+    def _finish_telemetry(self) -> None:
+        t = self.telemetry
+        if not t.enabled:
+            return
+        t.record_memory()
+        t.close()
+        print(t.summary_table(), flush=True)
+
+    def _warm_kernels(self) -> None:
+        """Build (or load) every kernel library the rounds launch — on the
+        card, the fused update's — before the first round: mark_warm()
+        fires after the first full round, and a build after it is counted
+        as a regression. Nothing to build on the CPU."""
+        if self.device.type == "cuda":
+            from dba_mod_tpu_torch.ops import fused_update
+            fused_update._load()
+
+    @contextlib.contextmanager
+    def _profile(self, folder: str, epoch: int):
+        """torch.profiler over one round (CPU and, on the card, CUDA
+        activity), exported as a Chrome trace into `folder`."""
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            yield
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        out = Path(folder)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"round_{epoch}.pt.trace.json"
+        prof.export_chrome_trace(str(path))
+        logger.info("epoch %d: torch.profiler trace written to %s", epoch,
+                    path)
 
     def _run_rounds(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         if self.params["mode"] == "async":
@@ -1019,9 +1433,23 @@ class Experiment:
             # dispatch, arrivals, K-arrival merges, recording and
             # checkpoints
             from dba_mod_tpu_torch.fl.async_rounds import AsyncDriver
-            return AsyncDriver(self).run(epochs)
-        last: Dict[str, Any] = {}
+            self.async_driver = AsyncDriver(self)
+            return self.async_driver.run(epochs)
         end = epochs if epochs is not None else int(self.params["epochs"])
+        profile_dir = str(self.params.get("profile_dir", "") or "")
+        if self.telemetry.enabled:
+            with self.telemetry.span("engine/warm_buckets"):
+                self._warm_kernels()
+        # pipeline_rounds / overlap_eval: the depth-1 pipelined loop.
+        # Profiling forces sequential rounds (a trace needs one round
+        # alone on the timeline), and so does telemetry: finalize(N)
+        # flushes round N's histogram window, which dispatch(N+1) would
+        # otherwise fill with round N+1's spans
+        if ((bool(self.params.get("pipeline_rounds", False))
+                or self._overlap)
+                and not profile_dir and not self.telemetry.enabled):
+            return self._run_pipelined(end)
+        last: Dict[str, Any] = {}
         for epoch in range(self.start_epoch, end + 1, self.interval):
             if self.guard.stop_requested:
                 # round-boundary stop: the previous round's save_model
@@ -1030,11 +1458,51 @@ class Experiment:
                 self._note_interrupted(epoch)
                 break
             self.guard.watchdog.epoch = epoch
-            last = self.run_round(epoch)
+            if profile_dir and epoch == self.start_epoch + self.interval:
+                # trace the first round after warm-up
+                with self._profile(profile_dir, epoch):
+                    last = self.run_round(epoch)
+            else:
+                last = self.run_round(epoch)
             self.save_model(epoch)
+            self.telemetry.mark_warm()   # the first full round ends warm-up
             logger.info("epoch %d done in %.2fs acc=%.2f backdoor=%s",
                         epoch, last["round_time"], last["global_acc"],
                         last["backdoor_acc"])
+        return last
+
+    def _run_pipelined(self, end: int) -> Dict[str, Any]:
+        """Depth 1: round N+1 is dispatched before round N is finalized,
+        so N's host work (and, under overlap_eval, its batteries on the
+        eval stream) runs beside N+1's device work. Checkpoints are async
+        saves of the state captured at dispatch, written in program
+        order."""
+        def finalize_and_log(fl: RoundInFlight) -> Dict[str, Any]:
+            r = self.finalize_round(fl)
+            self.save_model(fl.epoch, fl=fl, async_save=True)
+            self.telemetry.mark_warm()
+            logger.info("epoch %d done in %.2fs acc=%.2f backdoor=%s",
+                        r["epoch"], r["round_time"], r["global_acc"],
+                        r["backdoor_acc"])
+            return r
+
+        self._pipelining = True
+        last: Dict[str, Any] = {}
+        pending: Optional[RoundInFlight] = None
+        try:
+            for epoch in range(self.start_epoch, end + 1, self.interval):
+                if self.guard.stop_requested:
+                    self._note_interrupted(epoch)
+                    break
+                self.guard.watchdog.epoch = epoch
+                fl = self.dispatch_round(epoch)
+                if pending is not None:
+                    last = finalize_and_log(pending)
+                pending = fl
+            if pending is not None:
+                last = finalize_and_log(pending)
+        finally:
+            self._pipelining = False
         return last
 
     def _note_interrupted(self, next_epoch: int) -> None:
@@ -1042,6 +1510,7 @@ class Experiment:
         the CLI exits with run_guard.EXIT_INTERRUPTED and a wrapper can
         relaunch with ``--resume auto``."""
         self.interrupted = True
+        telemetry.count("run/interrupted")
         logger.warning(
             "graceful stop honored at the round boundary before epoch %d — "
             "exiting (resume with --resume auto)", next_epoch)

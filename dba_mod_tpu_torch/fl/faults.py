@@ -35,6 +35,7 @@ import torch
 from dba_mod_tpu_torch import config as cfg
 from dba_mod_tpu_torch.models import ModelVars
 from dba_mod_tpu_torch.ops.aggregation import _bc_mask as _bc
+from dba_mod_tpu_torch.utils.device import to_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,7 +77,7 @@ class FaultPlan(NamedTuple):
     stale: torch.Tensor
 
     def to(self, device: torch.device) -> "FaultPlan":
-        return FaultPlan(*(t.to(device) for t in self))
+        return FaultPlan(*(to_device(t, device) for t in self))
 
 
 def fault_generator(seed: int, epoch: int) -> torch.Generator:

@@ -22,7 +22,11 @@ A round is
 `round_fn` runs them all and returns the payload in the order the JAX
 package's ``Experiment.finalize_round`` unpacks it, with RobustStats (or
 None) in slot 9 and ForensicStats (``forensics: true``; None otherwise) in
-the last slot. The forensics are computed on the device and come to the
+the last slot. It is the composition of :meth:`RoundEngine.core_fn` (the
+round minus its eval tail, which ``overlap_eval`` runs on the main stream)
+and :meth:`RoundEngine.eval_batteries` (which it runs on a second stream);
+each battery is a synced ``eval/*`` telemetry span when telemetry is on.
+The forensics are computed on the device and come to the
 host in the round's one transfer at finalize, with no sync of their own.
 :class:`HealthSentinel` (``model_health_check``) checks a merged model
 with one scalar host read per check.
@@ -40,12 +44,15 @@ from dba_mod_tpu_torch import config as cfg
 from dba_mod_tpu_torch.fl import faults as flt
 from dba_mod_tpu_torch.fl.client import ClientMetrics, make_client_step
 from dba_mod_tpu_torch.fl.device_data import DeviceData
-from dba_mod_tpu_torch.fl.evaluation import (EvalResult, make_eval_fn,
+from dba_mod_tpu_torch.fl.evaluation import (EvalResult, instrument_eval,
+                                             make_eval_fn,
                                              make_stacked_eval_fn)
 from dba_mod_tpu_torch.fl.state import ClientTask, RoundHyper
 from dba_mod_tpu_torch.models import ModelDef, ModelVars
 from dba_mod_tpu_torch.ops import aggregation as agg
 from dba_mod_tpu_torch.ops.losses import tree_global_norm
+from dba_mod_tpu_torch.utils import telemetry
+from dba_mod_tpu_torch.utils.device import to_device
 
 
 def count_bn_layers(batch_stats: Dict[str, torch.Tensor]) -> int:
@@ -142,11 +149,12 @@ def forensic_stats(global_vars: ModelVars, new_vars: ModelVars,
     unorm = torch.sqrt(torch.sum(upd * upd))
     denom = torch.clamp_min(recv_norms * unorm, 1e-12)
     cos = (pts @ upd) / denom
-    dev = recv_norms.device
+    calls = (oracle_calls.to(torch.int32)
+             if isinstance(oracle_calls, torch.Tensor)
+             else torch.full((), int(oracle_calls), dtype=torch.int32,
+                             device=recv_norms.device))
     return ForensicStats(recv_norms, cos, survivor_mask,
-                         reason.to(torch.int32),
-                         torch.as_tensor(oracle_calls, dtype=torch.int32,
-                                         device=dev))
+                         reason.to(torch.int32), calls)
 
 
 def model_health_stats(old_vars: ModelVars, new_vars: ModelVars
@@ -423,6 +431,11 @@ class RoundEngine:
 
     def __init__(self, params: cfg.Params, model_def: ModelDef,
                  data: DeviceData, plans: EvalPlans, num_segments: int = 1):
+        with telemetry.span("engine/build"):
+            self._build(params, model_def, data, plans, num_segments)
+
+    def _build(self, params: cfg.Params, model_def: ModelDef,
+               data: DeviceData, plans: EvalPlans, num_segments: int):
         self.params = params
         self.hyper = hyper = RoundHyper.from_params(params)
         self.model_def = model_def
@@ -466,6 +479,22 @@ class RoundEngine:
         else:
             n_triggers = params.num_adversaries
         self.num_global_triggers = n_triggers
+        # each battery a synced telemetry span (a passthrough while
+        # telemetry is off); `batches` counts the test batches it fetches
+        clean = int(plans.clean_idx.shape[0])
+        poison = int(plans.poison_idx.shape[0])
+        local_b = clean + (3 * poison if self.is_poison_run else 0)
+        global_b = clean + ((1 + n_triggers) * poison
+                            if self.is_poison_run else 0)
+        self._local_battery = instrument_eval(self._local_evals,
+                                              "eval/local", local_b)
+        self._seg_battery = instrument_eval(
+            self._seg_local_evals, "eval/seg_local",
+            (num_segments - 1) * local_b)
+        self._global_battery = instrument_eval(self._global_evals,
+                                               "eval/global", global_b)
+        self._probe = instrument_eval(self._backdoor_acc,
+                                      "eval/backdoor_probe", poison)
 
     # ------------------------------------------------------------- train
     def train_fn(self, global_vars: ModelVars, tasks_seq: List[ClientTask],
@@ -488,10 +517,10 @@ class RoundEngine:
         seg_metrics, seg_bloss, seg_bdist, seg_deltas = [], [], [], []
         for s in range(n_seg):
             task = tasks_seq[s].to_device(dev)
-            idx = torch.from_numpy(idx_seq[s]).to(dev)
-            mask = torch.from_numpy(mask_seq[s]).to(dev)
+            idx = to_device(idx_seq[s], dev)
+            mask = to_device(mask_seq[s], dev)
             active = mask_seq[s].any(axis=(0, 3))         # [E, S] host-side
-            drop = (tuple(d.to(dev) for d in dropout_seq[s])
+            drop = (tuple(to_device(d, dev) for d in dropout_seq[s])
                     if self.model_def.has_dropout else ())
             res = self.client_step(start, benign_mom, task, idx, mask,
                                    active, drop)
@@ -527,6 +556,11 @@ class RoundEngine:
         return aggregate(self.hyper, global_vars, deltas, gen, noise, **kw)
 
     # -------------------------------------------------------- evaluation
+    def _const(self, v: int) -> torch.Tensor:
+        """An int64 scalar on the engine's device, made by a fill (a
+        host→device copy would hold the host until the stream drains)."""
+        return torch.full((), v, dtype=torch.int64, device=self.device)
+
     def _zero_evals(self, n: int) -> EvalResult:
         z = torch.zeros((n,), dtype=torch.float32, device=self.device)
         return EvalResult(z, z, z, z)
@@ -537,7 +571,7 @@ class RoundEngine:
         (image_train.py:150-155, :268-271), poison pre on it (:157-164),
         poison post + per-agent trigger on the submitted one (:275-295)."""
         pl = self.plans
-        minus1 = torch.tensor(-1, device=self.device)
+        minus1 = self._const(-1)
         clean = self.eval_clean_s(unscaled, pl.clean_idx, pl.clean_slots,
                                   pl.clean_mask, minus1)
         if self.is_poison_run:
@@ -553,8 +587,14 @@ class RoundEngine:
 
     def local_evals(self, global_vars: ModelVars, deltas: ModelVars,
                     task: ClientTask, prev_deltas: ModelVars) -> LocalEvals:
-        """`prev_deltas` anchors the final segment: the pre-scaling model is
+        """The per-client battery of the clients' trained models.
+        `prev_deltas` anchors the final segment: the pre-scaling model is
         (global + prev) + (Δ - prev)/scale."""
+        return self._local_battery(global_vars, deltas, task, prev_deltas)
+
+    def _local_evals(self, global_vars: ModelVars, deltas: ModelVars,
+                     task: ClientTask, prev_deltas: ModelVars
+                     ) -> LocalEvals:
         def unscale(g, p, d):
             return g + p + (d - p) / _bc(task.scale.to(torch.float32), d)
         unscaled = ModelVars(
@@ -570,18 +610,27 @@ class RoundEngine:
                         tasks_seq: List[ClientTask]) -> List[LocalEvals]:
         """Per-epoch local evals for aggr_epoch_interval > 1: the battery of
         each INTERMEDIATE segment (the final one is local_evals)."""
+        return self._seg_battery(global_vars, seg_deltas, tasks_seq)
+
+    def _seg_local_evals(self, global_vars: ModelVars,
+                         seg_deltas: List[ModelVars],
+                         tasks_seq: List[ClientTask]) -> List[LocalEvals]:
         outs, prev = [], None
         for s, cur in enumerate(seg_deltas):
             if prev is None:
                 prev = _map2(lambda c, _: torch.zeros_like(c), cur, cur)
             task = tasks_seq[s].to_device(self.device)
-            outs.append(self.local_evals(global_vars, cur, task, prev))
+            outs.append(self._local_evals(global_vars, cur, task, prev))
             prev = cur
         return outs
 
     def global_evals(self, model_vars: ModelVars) -> GlobalEvals:
+        """The global battery of one model."""
+        return self._global_battery(model_vars)
+
+    def _global_evals(self, model_vars: ModelVars) -> GlobalEvals:
         pl = self.plans
-        minus1 = torch.tensor(-1, device=self.device)
+        minus1 = self._const(-1)
         clean = self.eval_clean(model_vars, pl.clean_idx, pl.clean_slots,
                                 pl.clean_mask, minus1)
         n = self.num_global_triggers
@@ -591,7 +640,7 @@ class RoundEngine:
             if n > 0:
                 rows = [self.eval_poison(model_vars, pl.poison_idx,
                                          pl.poison_slots, pl.poison_mask,
-                                         torch.tensor(t, device=self.device))
+                                         self._const(t))
                         for t in range(n)]
                 per_trigger = EvalResult(*(torch.stack(f)
                                            for f in zip(*rows)))
@@ -605,26 +654,63 @@ class RoundEngine:
 
     def backdoor_acc(self, model_vars: ModelVars) -> torch.Tensor:
         """Combined-trigger backdoor accuracy of the global model."""
+        return self._probe(model_vars)
+
+    def _backdoor_acc(self, model_vars: ModelVars) -> torch.Tensor:
         pl = self.plans
         return self.eval_poison(model_vars, pl.poison_idx, pl.poison_slots,
                                 pl.poison_mask,
-                                torch.tensor(-1, device=self.device)).acc
+                                self._const(-1)).acc
 
     # ------------------------------------------------------------- round
     def round_fn(self, global_vars: ModelVars, tasks_seq: List[ClientTask],
                  idx_seq: np.ndarray, mask_seq: np.ndarray,
-                 gen: Optional[torch.Generator] = None, *,
-                 num_samples: np.ndarray,
-                 dropout_seq: Optional[List[tuple]] = None,
-                 fg_state: Optional[agg.FoolsGoldState] = None,
-                 fault_plan: Optional[flt.FaultPlan] = None,
-                 prev_deltas: Optional[ModelVars] = None,
-                 norm_mult: Optional[float] = None):
+                 gen: Optional[torch.Generator] = None, **kw):
         """train → [faults → screen] → aggregate → local evals → global
-        evals. Returns (new_vars, new_fg_state, payload, deltas_out); the
-        payload slots are ordered as the JAX package's round program orders
-        them: (locals, globals, metrics, delta_norms, wv, alpha, track_pair,
-        is_updated, seg_locals, robust_stats, forensic_stats).
+        evals: :meth:`core_fn` then :meth:`eval_batteries` (keywords as
+        core_fn's). Returns (new_vars, new_fg_state, payload, deltas_out);
+        the payload slots are ordered as the JAX package's round program
+        orders them: (locals, globals, metrics, delta_norms, wv, alpha,
+        track_pair, is_updated, seg_locals, robust_stats,
+        forensic_stats)."""
+        new_vars, new_fg, payload, deltas_out, eval_in = self.core_fn(
+            global_vars, tasks_seq, idx_seq, mask_seq, gen, **kw)
+        evals = self.eval_batteries(global_vars, new_vars, tasks_seq,
+                                    eval_in)
+        return new_vars, new_fg, with_batteries(payload, *evals), deltas_out
+
+    def eval_batteries(self, global_vars: ModelVars, new_vars: ModelVars,
+                       tasks_seq: List[ClientTask], eval_in):
+        """The round's eval tail on the core's outputs: the local battery of
+        what each client TRAINED (the pre-fault deltas; faults model the
+        uplink) against the pre-round model, the per-epoch batteries of an
+        aggr_epoch_interval > 1 round, and the global battery of the
+        committed model. Returns (locals, seg_locals, globals)."""
+        deltas, prev, seg_deltas = eval_in
+        task_last = tasks_seq[-1].to_device(self.device)
+        locals_ = (self.local_evals(global_vars, deltas, task_last, prev)
+                   if self.do_local_eval else None)
+        seg_l = (self.seg_local_evals(global_vars, seg_deltas, tasks_seq)
+                 if self.do_local_eval and self.num_segments > 1 else None)
+        return locals_, seg_l, self.global_evals(new_vars)
+
+    def core_fn(self, global_vars: ModelVars, tasks_seq: List[ClientTask],
+                idx_seq: np.ndarray, mask_seq: np.ndarray,
+                gen: Optional[torch.Generator] = None, *,
+                num_samples: np.ndarray,
+                dropout_seq: Optional[List[tuple]] = None,
+                fg_state: Optional[agg.FoolsGoldState] = None,
+                fault_plan: Optional[flt.FaultPlan] = None,
+                prev_deltas: Optional[ModelVars] = None,
+                norm_mult: Optional[float] = None,
+                tel=telemetry.NULL):
+        """The round CORE: train → [faults → screen] → aggregate, the round
+        minus its eval tail. Returns (new_vars, new_fg_state, payload,
+        deltas_out, eval_in): the payload's battery slots (0, 1, 8) are
+        None, and eval_in (train deltas, the final segment's anchor, the
+        intermediate segments' deltas) feeds :meth:`eval_batteries`.
+        Nothing it reads is written in place later, so the batteries may
+        run after the next round has started.
 
         `num_samples` [C]: each client's sample count (RFA's alphas; zero
         marks a lane that is not counted). `dropout_seq`: a dropout model's
@@ -633,18 +719,44 @@ class RoundEngine:
         only. With the fault layer on, `fault_plan` is the round's plan and
         `prev_deltas` the stale lane's replay source; deltas_out is then
         what the server received, for the next round's replay (None when
-        the stale lane is off)."""
+        the stale lane is off). `tel`: a telemetry instance to time the
+        train and aggregate phases in synced ``round/train`` and
+        ``round/aggregate`` spans (telemetry's split path)."""
+        with tel.span("round/train"):
+            train = self.train_fn(global_vars, tasks_seq, idx_seq, mask_seq,
+                                  dropout_seq)
+            tel.sync(train.deltas)
+        with tel.span("round/aggregate"):
+            res, stats, fstats, deltas_out = self._aggregate_round(
+                global_vars, tasks_seq, idx_seq, mask_seq, gen, train,
+                num_samples, fg_state, fault_plan, prev_deltas, norm_mult)
+            tel.sync(res.new_vars)
+        prev = (train.seg_deltas[-1] if train.seg_deltas else
+                _map2(lambda d, _: torch.zeros_like(d), train.deltas,
+                      train.deltas))
+        track_pair = ((train.batch_loss, train.batch_dist)
+                      if self.hyper.track_batches else None)
+        payload = (None, None, train.metrics, train.delta_norms, res.wv,
+                   res.alpha, track_pair, res.is_updated, None, stats,
+                   fstats)
+        return (res.new_vars, res.new_fg_state, payload, deltas_out,
+                (train.deltas, prev, train.seg_deltas))
+
+    def _aggregate_round(self, global_vars, tasks_seq, idx_seq, mask_seq,
+                         gen, train: TrainResult, num_samples, fg_state,
+                         fault_plan, prev_deltas, norm_mult):
+        """[faults → screen] → aggregate of core_fn. Returns (the
+        AggregateResult, RobustStats or None, ForensicStats or None,
+        deltas_out)."""
         dev = self.device
-        train = self.train_fn(global_vars, tasks_seq, idx_seq, mask_seq,
-                              dropout_seq)
         deltas, fg_grads, fg_feature = (train.deltas, train.fg_grads,
                                         train.fg_feature)
-        ns = torch.from_numpy(np.asarray(num_samples, np.float32)).to(dev)
-        pids = torch.from_numpy(np.asarray(tasks_seq[0].participant_id,
-                                           np.int64)).to(dev)
-        nbt = torch.from_numpy(nbt_client_deltas(
-            mask_seq, np.stack([np.asarray(t.scale) for t in tasks_seq]))
-        ).to(dev)
+        ns = to_device(np.asarray(num_samples, np.float32), dev)
+        pids = to_device(np.asarray(tasks_seq[0].participant_id, np.int64),
+                         dev)
+        nbt = to_device(nbt_client_deltas(
+            mask_seq, np.stack([np.asarray(t.scale) for t in tasks_seq])),
+            dev)
         agg_kw = dict(fg_state=fg_state, participant_ids=pids,
                       num_samples=ns, nbt_deltas=nbt)
         stats, fstats, deltas_out = None, None, None
@@ -727,21 +839,10 @@ class RoundEngine:
                     torch.ones((C,), dtype=torch.bool, device=dev),
                     torch.zeros((C,), dtype=torch.int32, device=dev),
                     res.num_oracle_calls)
-        prev = (train.seg_deltas[-1] if train.seg_deltas else
-                _map2(lambda d, _: torch.zeros_like(d), train.deltas,
-                      train.deltas))
-        task_last = tasks_seq[-1].to_device(dev)
-        # the local battery evaluates what each client TRAINED (faults model
-        # the uplink): the pre-fault deltas
-        locals_ = (self.local_evals(global_vars, train.deltas, task_last,
-                                    prev) if self.do_local_eval else None)
-        seg_l = (self.seg_local_evals(global_vars, train.seg_deltas,
-                                      tasks_seq)
-                 if self.do_local_eval and self.num_segments > 1 else None)
-        globals_ = self.global_evals(res.new_vars)
-        track_pair = ((train.batch_loss, train.batch_dist)
-                      if self.hyper.track_batches else None)
-        payload = (locals_, globals_, train.metrics, train.delta_norms,
-                   res.wv, res.alpha, track_pair, res.is_updated, seg_l,
-                   stats, fstats)
-        return res.new_vars, res.new_fg_state, payload, deltas_out
+        return res, stats, fstats, deltas_out
+
+
+def with_batteries(payload, locals_, seg_locals, globals_):
+    """A core payload with the eval batteries' results in their slots."""
+    return ((locals_, globals_) + tuple(payload[2:8]) + (seg_locals,)
+            + tuple(payload[9:]))

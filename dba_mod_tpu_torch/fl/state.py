@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from dba_mod_tpu_torch import config as cfg
+from dba_mod_tpu_torch.utils.device import to_device
 from dba_mod_tpu_torch.ops.sgd import (loan_adaptive_poison_lr,
                                        poison_multistep_lr_array)
 
@@ -37,8 +38,7 @@ class ClientTask(NamedTuple):
     num_epochs: np.ndarray           # valid internal epochs (≤ E)
 
     def to_device(self, device: torch.device) -> "ClientTask":
-        return ClientTask(*(torch.as_tensor(np.asarray(f)).to(device)
-                            for f in self))
+        return ClientTask(*(to_device(np.asarray(f), device) for f in self))
 
 
 @dataclasses.dataclass(frozen=True)

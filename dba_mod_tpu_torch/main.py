@@ -54,8 +54,13 @@ def _train(args) -> int:
                      device=args.device)
     last = exp.run()
     from dba_mod_tpu_torch.ops import fused_update as fu
-    logging.getLogger("dba_mod_tpu_torch").info(
-        "fused update kernel launches: %d", fu.fused_step_update.launches)
+    lg = logging.getLogger("dba_mod_tpu_torch")
+    lg.info("fused update kernel launches: %d", fu.fused_step_update.launches)
+    if exp._overlap_rounds or exp._finalized_ahead:
+        lg.info("overlap: %d rounds, hidden eval seconds %.6f, eval wait "
+                "seconds %.6f, finalized ahead of the device %d",
+                exp._overlap_rounds, exp._overlap_hidden_s,
+                exp._overlap_wait_s, exp._finalized_ahead)
     if exp.interrupted:
         done = last.get("epoch") if last else exp.start_epoch - 1
         print(f"interrupted: graceful stop after epoch {done} — resume "

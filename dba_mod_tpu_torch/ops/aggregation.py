@@ -135,11 +135,12 @@ def fedavg_update_masked(global_state: Tree, stacked_deltas: Tree,
     dense rule's float32 scale exactly — bitwise the dense result."""
     deltas = survivor_sanitize(stacked_deltas, mask)
     excluded = torch.sum((counted > 0) & ~(mask > 0))
-    nm = torch.tensor(float(no_models), dtype=torch.float32,
-                      device=mask.device)
+    # scalars made by fills: a host→device copy would block the host
+    nm = torch.full((), float(no_models), dtype=torch.float32,
+                    device=mask.device)
     divisor = torch.clamp(nm - excluded, min=1.0)
-    scale = torch.tensor(eta / no_models, dtype=torch.float32,
-                         device=mask.device) * (nm / divisor)
+    scale = torch.full((), eta / no_models, dtype=torch.float32,
+                       device=mask.device) * (nm / divisor)
     new_state = {k: g + scale * torch.sum(deltas[k], dim=0)
                  for k, g in global_state.items()}
     return _noised(new_state, dp_sigma, noise, gen)

@@ -6,7 +6,8 @@ Each kernel source under ``dba_mod_tpu_torch/csrc/`` exports a plain
 .gitignore) and loaded with ``ctypes``. The library's file name carries a
 hash of the source and flags, so an edited source is rebuilt and a stale
 library is never loaded. No PyTorch header is included, so a build takes
-seconds.
+seconds. Each build is reported to telemetry (``cuda/kernel_builds``; a
+build after warm-up is counted apart and logged).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+from dba_mod_tpu_torch.utils import telemetry
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -70,6 +73,7 @@ def load_library(source: str) -> ctypes.CDLL:
                                    f"{proc.stdout}\n{proc.stderr}")
             build_seconds[source] = time.perf_counter() - t0
             os.replace(tmp, out)
+            telemetry.kernel_built(source, build_seconds[source])
         lib = ctypes.CDLL(str(out))
         _loaded[source] = lib
         return lib

@@ -26,6 +26,18 @@ def resolve_device(name: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def to_device(a, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) on `device`. On the card the copy
+    goes through a pinned buffer as a non-blocking copy on the current
+    stream: a blocking host→device copy synchronizes the stream, which
+    would hold the host until every launch queued before it has run, and
+    round pipelining needs the host to run ahead of the card."""
+    t = torch.as_tensor(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def pin_float32_math() -> None:
     """float32 runs in full float32 on the card. cuDNN convolutions default
     to TF32 (about three decimal digits), and the JAX reference is f32, so

@@ -1,7 +1,9 @@
 """Result recording with column-schema parity to the reference's CSVs
 (utils/csv_record.py), plus a JSONL metrics stream — the PyTorch port's own
 copy of dba_mod_tpu/utils/recorder.py: the same files, columns and rows.
-Its TensorBoard scalar mirror (flax's writer) is ROADMAP A17.
+``tensorboard: true`` mirrors every row as TensorBoard scalars into
+``<run>/tb`` (``torch.utils.tensorboard``), with the JAX package's tags and
+steps.
 `load_from_folder` continues a run folder's streams on an auto-resume, and
 `reload_rows` at the row counts an async checkpoint recorded. An async run's
 rows carry its extras (``mode``, ``buffer_occupancy``, ``staleness_mean``,
@@ -80,6 +82,10 @@ def canonical_run_outputs(folder) -> dict:
     return out
 
 
+def _tag(name: Any) -> str:
+    return str(name).replace("/", "_")
+
+
 # the in-memory streams save() writes, in the order it writes them
 STREAMS = ("train_result", "test_result", "weight_result", "scale_result",
            "batch_loss_result", "batch_distance_result", "round_result",
@@ -89,11 +95,13 @@ STREAMS = ("train_result", "test_result", "weight_result", "scale_result",
 class Recorder:
     def __init__(self, folder: Optional[Path] = None,
                  tensorboard: bool = False):
-        if tensorboard:
-            raise NotImplementedError(
-                "tensorboard is not ported to dba_mod_tpu_torch yet "
-                "(ROADMAP A17)")
+        """`tensorboard` is opt-in (the config key of the same name); it
+        writes nothing without a run folder."""
         self.folder = Path(folder) if folder else None
+        self._tb = None
+        if self.folder is not None and tensorboard:
+            from torch.utils.tensorboard import SummaryWriter
+            self._tb = SummaryWriter(str(self.folder / "tb"))
         self.train_result: List[list] = []
         self.test_result: List[list] = []
         self.posiontest_result: List[list] = []   # (sic) reference file name
@@ -106,44 +114,72 @@ class Recorder:
         self.round_result: List[list] = []
         self._jsonl_rows: List[dict] = []
 
+    def _scalar(self, tag: str, value: float, step: int):
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), int(step))
+
     # ------------------------------------------------------------------ adds
     def add_train(self, name, temp_local_epoch, epoch, internal_epoch, loss,
                   acc, correct, total):
         self.train_result.append([name, temp_local_epoch, epoch,
                                   internal_epoch, loss, acc, correct, total])
+        # train_vis (models/simple.py:18-31): x = temp_local_epoch
+        self._scalar(f"train/acc/{_tag(name)}", acc, temp_local_epoch)
+        self._scalar(f"train/loss/{_tag(name)}", loss, temp_local_epoch)
 
     def add_test(self, name, epoch, loss, acc, correct, total):
         self.test_result.append([name, epoch, loss, acc, correct, total])
+        # test_vis (models/simple.py:178-200, test.py:47)
+        self._scalar(f"test/acc/{_tag(name)}", acc, epoch)
+        self._scalar(f"test/loss/{_tag(name)}", loss, epoch)
 
     def add_poisontest(self, name, epoch, loss, acc, correct, total):
         self.posiontest_result.append([name, epoch, loss, acc, correct,
                                        total])
+        # poison_test_vis (models/simple.py:131-153, test.py:112)
+        self._scalar(f"poison_test/acc/{_tag(name)}", acc, epoch)
+        self._scalar(f"poison_test/loss/{_tag(name)}", loss, epoch)
 
     def add_triggertest(self, model, trigger_name, trigger_value, epoch, loss,
                         acc, correct, total):
         self.poisontriggertest_result.append(
             [model, trigger_name, trigger_value, epoch, loss, acc, correct,
              total])
+        # trigger_test_vis / trigger_agent_test_vis (models/simple.py:
+        # 88-129, main.py:39-58, image_train.py:287-297)
+        tag = f"{_tag(model)}.{_tag(trigger_name)}"
+        self._scalar(f"trigger_test/acc/{tag}", acc, epoch)
+        self._scalar(f"trigger_test/loss/{tag}", loss, epoch)
 
     def add_weight_result(self, names, weights, alphas, epoch=None):
         # reference appends three rows per round (csv_record.py:61-64)
         self.weight_result.append(list(names))
         self.weight_result.append(list(weights))
         self.weight_result.append(list(alphas))
+        # weight_vis / alpha_vis (models/simple.py:62-87, main.py:60-83)
+        if epoch is not None:
+            for n, w, a in zip(names, weights, alphas):
+                self._scalar(f"aggregation/weight/{_tag(n)}", w, epoch)
+                self._scalar(f"aggregation/alpha/{_tag(n)}", a, epoch)
 
     def add_batch_loss(self, name, temp_local_epoch, epoch, internal_epoch,
                        batch, steps_per_epoch, loss):
         """Per-batch train loss (vis_train_batch_loss,
-        image_train.py:225-235)."""
+        image_train.py:225-235; train_batch_vis models/simple.py:32-42)."""
         self.batch_loss_result.append(
             [name, temp_local_epoch, epoch, internal_epoch, batch, loss])
+        step = (temp_local_epoch - 1) * steps_per_epoch + batch
+        self._scalar(f"train_batch/loss/{_tag(name)}", loss, step)
 
     def add_batch_distance(self, name, temp_local_epoch, epoch,
                            internal_epoch, batch, steps_per_epoch, dist):
         """Per-batch post-step distance to the round anchor
-        (batch_track_distance, image_train.py:236-245)."""
+        (batch_track_distance, image_train.py:236-245;
+        track_distance_batch_vis models/simple.py:43-61)."""
         self.batch_distance_result.append(
             [name, temp_local_epoch, epoch, internal_epoch, batch, dist])
+        step = (temp_local_epoch - 1) * steps_per_epoch + batch
+        self._scalar(f"distance_to_global/{_tag(name)}", dist, step)
 
     def add_round_json(self, **kwargs):
         kwargs.setdefault("time", time.time())
@@ -159,6 +195,12 @@ class Recorder:
                  kwargs.get("round_time"),
                  kwargs.get("dispatch_time"),
                  kwargs.get("finalize_time")])
+        if self._tb is not None and "epoch" in kwargs:
+            step = int(kwargs["epoch"])
+            for k, v in kwargs.items():
+                if isinstance(v, (int, float)) and k not in ("epoch", "time"):
+                    self._tb.add_scalar(k, float(v), step)
+            self._tb.flush()
 
     # ---------------------------------------------------------- resume/load
     def load_from_folder(self, keep_until_epoch: int) -> int:

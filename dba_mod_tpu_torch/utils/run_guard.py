@@ -13,9 +13,11 @@ failure shapes, two tools:
   immediate exit (``128 + signum``) for operators who mean it.
 - :class:`Watchdog` — a monotonic-deadline timer around the round path's
   host-blocking sync points (the round's device-to-host transfer at
-  finalize, the robust screen's finite check, LOAN's poison probe). A
-  stall past ``watchdog_soft_s`` logs a loud diagnostic (zone label,
-  epoch, elapsed); past ``watchdog_hard_s`` the process is aborted with
+  finalize, the robust screen's finite check, LOAN's poison probe, the
+  async-checkpoint wait). A stall past ``watchdog_soft_s`` logs a loud
+  diagnostic (zone label, epoch, elapsed, the telemetry span stack
+  captured at zone entry); past ``watchdog_hard_s`` the process is
+  aborted with
   :data:`EXIT_WATCHDOG` — a wedged run dies *checkpointed* (the previous
   round's verified checkpoint is on disk) instead of burning quota.
 
@@ -35,7 +37,9 @@ import os
 import signal
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+from dba_mod_tpu_torch.utils import telemetry
 
 logger = logging.getLogger("dba_mod_tpu_torch")
 
@@ -48,6 +52,30 @@ EXIT_WATCHDOG = 76      # watchdog hard abort: a sync point stalled past
                         # is the resume point
 
 _NULL_CM = contextlib.nullcontext()
+
+
+def _flush_checkpoints_bounded(timeout_s: float = 10.0) -> None:
+    """Best-effort landing of queued async checkpoint writes before an
+    abort exit. Bounded: the abort must never trade a wedged round for a
+    wedged flush, so the wait runs on a side thread and is abandoned at the
+    deadline; the previous verified snapshot is on disk either way."""
+    done = threading.Event()
+
+    def _wait():
+        try:
+            from dba_mod_tpu_torch import checkpoint as ckpt  # no cycle
+            ckpt.wait_for_async_saves()
+        except Exception:  # noqa: BLE001 — aborting anyway
+            pass
+        finally:
+            done.set()
+
+    threading.Thread(target=_wait, daemon=True,
+                     name="dba-abort-flush").start()
+    if not done.wait(timeout_s):
+        logger.warning("abort: async checkpoint flush did not finish in "
+                       "%.0fs — exiting on the previous verified snapshot",
+                       timeout_s)
 
 
 class GracefulShutdown:
@@ -107,6 +135,10 @@ class GracefulShutdown:
             self._force_exit(128 + int(signum))
             return
         self._stop.set()
+        # NO telemetry.count here: counters take telemetry's non-reentrant
+        # lock, and a handler runs on the main thread — a signal landing
+        # while that thread holds the lock would deadlock the process. The
+        # honored stop is counted at the round boundary (run/interrupted).
         try:
             name = signal.Signals(signum).name
         except ValueError:  # pragma: no cover — unknown signum
@@ -119,16 +151,17 @@ class GracefulShutdown:
 
 class _Zone:
     __slots__ = ("label", "t0", "soft_at", "hard_at", "soft_fired",
-                 "epoch")
+                 "epoch", "spans")
 
     def __init__(self, label: str, t0: float, soft_at: float, hard_at: float,
-                 epoch: Optional[int]):
+                 epoch: Optional[int], spans: List[str]):
         self.label = label
         self.t0 = t0
         self.soft_at = soft_at
         self.hard_at = hard_at
         self.soft_fired = False
         self.epoch = epoch
+        self.spans = spans
 
 
 class Watchdog:
@@ -138,7 +171,9 @@ class Watchdog:
     block disarms it. One daemon thread (started lazily on the first armed
     zone, never when disabled) watches the active zone: at ``soft_s`` it
     logs a stall diagnostic once (the zone label, the epoch the caller set
-    in :attr:`epoch`, elapsed seconds); at ``hard_s`` it aborts the process
+    in :attr:`epoch`, elapsed seconds, and the telemetry span stack
+    captured at zone entry — in the arming thread, since span stacks are
+    thread-local); at ``hard_s`` it aborts the process
     via `on_hard` (default: flush logging, ``os._exit(EXIT_WATCHDOG)``).
     Deadlines use ``time.monotonic()`` so wall-clock adjustments can
     neither fire nor suppress the timer."""
@@ -166,7 +201,7 @@ class Watchdog:
         z = _Zone(label, t0,
                   t0 + self.soft_s if self.soft_s > 0 else float("inf"),
                   t0 + self.hard_s if self.hard_s > 0 else float("inf"),
-                  self.epoch)
+                  self.epoch, telemetry.current().span_stack())
         with self._cv:
             self._zone = z
             self._cv.notify()
@@ -210,10 +245,12 @@ class Watchdog:
                     continue
                 z.soft_fired = True
                 self.soft_stalls += 1
+                telemetry.count("watchdog/soft_stalls")
                 logger.error(
                     "watchdog: %s has stalled for %.1fs (soft limit %.1fs) "
-                    "— epoch=%s; hard abort %s", z.label, elapsed,
-                    self.soft_s, z.epoch,
+                    "— epoch=%s span stack at entry=%s; hard abort %s",
+                    z.label, elapsed, self.soft_s, z.epoch,
+                    z.spans or ["-"],
                     (f"at {self.hard_s:.1f}s" if self.hard_s > 0
                      else "disabled"))
             if now >= z.hard_at:
@@ -225,11 +262,13 @@ class Watchdog:
                     if self._zone is not z:
                         continue
                     self.hard_aborts += 1
+                    telemetry.count("watchdog/hard_aborts")
                     logger.critical(
                         "watchdog: %s stalled past the hard limit (%.1fs > "
-                        "%.1fs) — epoch=%s; aborting with exit code %d (the "
-                        "last committed checkpoint is the resume point)",
-                        z.label, elapsed, self.hard_s, z.epoch,
+                        "%.1fs) — epoch=%s span stack at entry=%s; aborting "
+                        "with exit code %d (the last committed checkpoint "
+                        "is the resume point)", z.label, elapsed,
+                        self.hard_s, z.epoch, z.spans or ["-"],
                         EXIT_WATCHDOG)
                     self._on_hard()
                     # an injected on_hard (tests) returns — drop the zone
@@ -238,8 +277,9 @@ class Watchdog:
 
     @staticmethod
     def _default_abort() -> None:  # pragma: no cover — kills the process
-        # checkpoints are written synchronously at round boundaries, so
-        # nothing is in flight to land before the exit
+        # land queued async checkpoint writes first (bounded), so the
+        # newest committed round is resumable
+        _flush_checkpoints_bounded()
         logging.shutdown()
         os._exit(EXIT_WATCHDOG)
 

@@ -573,6 +573,29 @@ def test_health_rollback_restores_premerge_model():
     assert np.isfinite([r["global_acc"] for r in rows]).all()
 
 
+def test_health_rollback_lane_matches_jax_merge_for_merge():
+    """The rollback lane draws no random numbers, so the JAX driver checks
+    it as it stands: from the same initial weights, merge for merge, the
+    same arrivals and sentinel decisions (degraded steps, rollbacks), the
+    sentinel's EMA and merge count, the global model within 1e-6."""
+    cfg = dict(BASE, mode="async", buffer_k=2, async_steps=4,
+               model_health_check=True, health_norm_band=1e-9,
+               health_warmup_merges=1, rollback_ring=2, **ARRIVALS)
+    jexp, jd, texp, td = _jax_pair(cfg)
+    for _ in range(4):
+        jr, tr = jd.run_steps(1), td.run_steps(1)
+        for k in ASYNC_ONLY | {"agents", "degraded", "n_retries"}:
+            assert jr[k] == tr[k], (k, jr[k], tr[k])
+        assert abs(jr["global_acc"] - tr["global_acc"]) <= 1.0
+        assert _global_gap(jexp, texp) <= 1e-6
+        js, ts = jexp._sentinel, texp._sentinel
+        assert js.merges == ts.merges
+        assert ts.ema == pytest.approx(js.ema, rel=1e-5)
+    assert td.stats()["health_rollbacks"] == jd.stats()["health_rollbacks"]
+    assert [r["degraded"] for r in texp.recorder._jsonl_rows] == \
+        [False, True, True, True]
+
+
 def test_health_remerge_escalates_the_screen():
     """A blown-up payload passes the finite-only screen, so the merge
     leaves the health band; the sentinel re-merges the same buffer with the
@@ -614,12 +637,19 @@ def test_inert_knobs_are_a_bitwise_noop():
 @pytest.mark.parametrize("bad,match", [
     (dict(aggregation_methods="foolsgold"), "foolsgold"),
     (dict(aggr_epoch_interval=2), "aggr_epoch_interval"),
-    (dict(overlap_eval=True), "A17"),
-    (dict(telemetry=True), "A17"),
     (dict(fault_host_loss_prob=0.1), "A18")])
 def test_async_config_rejections(bad, match):
     with pytest.raises((ValueError, NotImplementedError), match=match):
         Params.from_dict(dict(BASE, mode="async", **bad))
+
+
+@pytest.mark.parametrize("knob", ["overlap_eval", "telemetry"])
+def test_async_config_accepts_the_a17_knobs(knob):
+    """overlap_eval (the merge pipeline) and telemetry are ported in
+    async mode too: the config takes them as the reference's does."""
+    from dba_mod_tpu.config import Params as JParams
+    raw = dict(BASE, mode="async", **{knob: True})
+    assert Params.from_dict(raw).raw == JParams.from_dict(raw).raw
 
 
 def test_async_config_is_ported_and_runs_on_the_card_by_default(

@@ -194,11 +194,7 @@ def test_fedavg_matches_jax():
     pytest.param({"fault_injection": True, "fault_host_loss_prob": 0.1},
                  "A18", id="override0-A18"),
     pytest.param({"num_devices": 4}, "A18", id="override4-A18"),
-    pytest.param({"pipeline_rounds": True}, "A17", id="override5-A17"),
     pytest.param({"sequential_debug": True}, "A19", id="override6-A19"),
-    pytest.param({"telemetry": True}, "A17", id="override9-A17"),
-    pytest.param({"tensorboard": True}, "A17", id="override10-A17"),
-    pytest.param({"overlap_eval": True}, "A17", id="override11-A17"),
     pytest.param({"grouped_clients": True}, "A19", id="override13-A19"),
 ])
 def test_unported_knobs_raise(override, item):
@@ -217,11 +213,16 @@ def test_unported_knobs_raise(override, item):
     {"watchdog_soft_s": 60.0, "watchdog_hard_s": 600.0},
     {"keep_last_n": 2},
     {"mode": "async", "buffer_k": 2, "staleness_weighting": "polynomial",
-     "merge_timeout_v": 1.0, "max_outstanding_waves": 3}],
+     "merge_timeout_v": 1.0, "max_outstanding_waves": 3},
+    {"telemetry": True, "telemetry_dir": "tel"}, {"tensorboard": True},
+    {"profile_dir": "prof"}, {"overlap_eval": True},
+    {"pipeline_rounds": True}],
     ids=["A20-bf16", "A14-forensics", "A14-health", "A15-auto",
-         "A15-graceful", "A15-watchdog", "A15-keep_last_n", "A16-async"])
+         "A15-graceful", "A15-watchdog", "A15-keep_last_n", "A16-async",
+         "A17-telemetry", "A17-tensorboard", "A17-profile_dir",
+         "A17-overlap_eval", "A17-pipeline_rounds"])
 def test_ported_knobs_pass(override):
-    """The knobs of ROADMAP A14, A15, A16 and A20 are ported:
+    """The knobs of ROADMAP A14, A15, A16, A17 and A20 are ported:
     check_ported accepts them, as the reference's config does."""
     import yaml
     raw = yaml.safe_load(open(SMOKE))
