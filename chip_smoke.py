@@ -106,11 +106,33 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    serial and with the merge pipeline: bitwise equal, pipelined_merges and
    hidden_finalize_s; (d) ``profile_dir`` on a two-round MNIST run: the
    torch.profiler trace of round 2 exists and holds kernel events.
+12. the grouped client layout (``grouped_clients``), ``sequential_debug``
+   and the deeper CIFAR ResNets: (a) at full CIFAR width (C = 10, batch 64,
+   float32, from phase 4's pretrain) one experiment's poisoned round
+   inputs and the same global state through the vmapped and the grouped
+   RoundEngine.train_fn: one fused launch per local step of every call,
+   the train-phase seconds (device-synced, min of 3) of each layout, a
+   torch.profiler table of each layout's first four steps with the share
+   of device time in layout transposes (cuDNN's genericTranspose,
+   nchwToNhwc, nhwcToNchw) and copy kernels, the deltas' max abs
+   difference (params and BN stats) between the layouts and between two
+   vmapped calls, and one train-mode forward of the round's first batch
+   through both layouts within 5e-5 (logits and new BN stats); (b) the same at Tiny-ImageNet width on phase 6's set
+   and pretrain, over the round's first 16 steps; (c) one poisoned CIFAR
+   round with ``grouped_clients: true`` through the CLI from phase 4's
+   pretrain, without the local battery: finite accuracies, one fused
+   launch per local step, round_time and train seconds beside phase 4's;
+   (d) one poisoned MNIST round with ``sequential_debug`` against the
+   stacked round on the card: global within 2e-3, accuracy within 0.5, one
+   fused launch per step of every width-1 call; (e) one train-mode forward
+   of each deeper CIFAR ResNet (34/50/101/152) at batch 8, card against
+   CPU, logits and running stats within 2e-3.
 
 Phase 3 also runs (as 3b) at the Tiny-ImageNet size (FoolsGold off and on)
 and at the LOAN size, so the kernels line has five rows. The CIFAR row's
-launches are phase 4's plus phase 10b's, 11a's and both 11b runs'. The
-script prints its own total seconds.
+launches are phase 4's plus phase 10b's, 11a's, both 11b runs' and the
+grouped ones of 12a and 12c; the Tiny row's are phase 6's plus 12b's grouped
+ones. The script prints its own total seconds.
 
 The last lines are a JSON object with the kernels' numbers, the card's name
 and power limit, and the result line {"ok": true, "device": {...}}. Exits
@@ -1960,6 +1982,312 @@ def run_phase11(tmp: Path, f32: dict, small: dict) -> dict:
             "launches": tel["launches"] + ovl["launches"]}
 
 
+# --------------------------------------------------------------- phase 12
+LAYOUT_KERNELS = ("genericTranspose", "nchwToNhwc", "nhwcToNchw")
+
+
+def _first_steps(mask, n: int):
+    """The plan with only its first `n` active local steps left active (a
+    step is active where any client has a sample): the others' masks are
+    cleared, so train_fn skips them on the host."""
+    import numpy as np
+    out = np.array(mask, copy=True)
+    active = out[0].any(axis=(0, 3))                   # [E, S]
+    for k, (e, s) in enumerate(zip(*np.nonzero(active))):
+        if k >= n:
+            out[:, :, e, s, :] = False
+    return out
+
+
+def _device_kernels(fn) -> dict:
+    """One call of fn under torch.profiler: its device time by kernel, and
+    the shares of the layout transposes (cuDNN's genericTranspose and its
+    NCHW <-> NHWC conversions) and of the copy kernels."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ks = sorted(((e.key, e.self_device_time_total)
+                 for e in prof.key_averages()
+                 if getattr(e, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA and
+                 e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    total = sum(t for _, t in ks)
+    tr = sum(t for k, t in ks if any(p in k for p in LAYOUT_KERNELS))
+    cp = sum(t for k, t in ks if "copy" in k.lower()
+             and not any(p in k for p in LAYOUT_KERNELS))
+    return {"device_ms": total / 1e3,
+            "transpose_share": tr / total if total else None,
+            "copy_share": cp / total if total else None,
+            "layout_share": (tr + cp) / total if total else None,
+            "top_kernels_us": [(k[:90], round(t, 1)) for k, t in ks[:6]]}
+
+
+def _max_diffs(a, b) -> dict:
+    return {part: max(float((getattr(a, part)[k] - getattr(b, part)[k])
+                            .abs().max()) for k in getattr(a, part))
+            for part in ("params", "batch_stats")}
+
+
+def _forward_ab(exp, task, idx) -> dict:
+    """The round's first batch (trigger stamped) through the vmapped
+    model_def.apply and grouped_train_apply in train mode, from the global
+    model stacked over the clients: max abs difference of the logits and
+    of the new BN running stats."""
+    import torch
+    from dba_mod_tpu_torch.models import ModelVars
+    from dba_mod_tpu_torch.models.grouped import grouped_train_apply
+
+    md, data, gv = exp.model_def, exp.device_data, exp.global_vars
+    task = task.to_device(exp.device)
+    C = int(idx.shape[1])
+    x, y = data.fetch_train(task.slot,
+                            torch.from_numpy(idx[0][:, 0, 0]).to(exp.device))
+    x, _, _ = data.stamp(x, y, task.adv_index, task.poisoning_per_batch)
+    p, s = ({k: v.expand((C,) + v.shape).contiguous() for k, v in t.items()}
+            for t in gv)
+    with torch.no_grad():
+        lv, sv = torch.func.vmap(lambda pp, ss, xx: md.apply(
+            ModelVars(pp, ss), xx, train=True))(p, s, x)
+        lg, sg = grouped_train_apply(md, p, s, x)
+    return {"logits": float((lv - lg).abs().max()),
+            "batch_stats": max(float((sv[k] - sg[k]).abs().max())
+                               for k in sv)}
+
+
+def layout_ab(cfg_path: Path, resume: str, epoch: int, what: str,
+              steps: int | None = None, reps: int = 3,
+              prof_steps: int = 4) -> dict:
+    """The port of benchmarks/grouped_ab.py: one experiment's round inputs
+    (`epoch`, a poisoned round; its first `steps` active steps when given)
+    and the same global state, resumed from `resume`, through the vmapped
+    and the grouped RoundEngine.train_fn. One fused launch per local step
+    of each call; the train-phase seconds, device-synced, min of `reps`
+    calls; each layout's device time by kernel over its first
+    `prof_steps` steps. Numerics: the deltas' max abs difference between
+    the layouts and, as its yardstick, between two vmapped calls (cuDNN's
+    default algorithms are not deterministic, and BatchNorm's float32
+    backward and the ×100 adversary amplify any difference over a round's
+    steps); and one train-mode forward of the round's first batch through
+    both layouts, logits and new BN stats within 5e-5
+    (tests/test_grouped_clients.py's forward bound)."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.fl.rounds import RoundEngine
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    raw = dict(yaml.safe_load(cfg_path.read_text()), resumed_model=True,
+               resumed_model_name=resume)
+    t0 = time.perf_counter()
+    exp = Experiment(Params.from_dict(raw), save_results=False,
+                     device="cuda")
+    engines = {"vmapped": exp.engine,
+               "grouped": RoundEngine(
+                   Params.from_dict(dict(raw, grouped_clients=True)),
+                   exp.model_def, exp.device_data, exp.eval_plans)}
+    if not engines["grouped"].use_grouped or exp.engine.use_grouped:
+        raise AssertionError(f"{what}: engines not built as asked")
+    tasks, idx, mask, _ = exp.build_static_round_inputs(epoch)
+    if not tasks[0].poisoning_per_batch.any():
+        raise AssertionError(f"{what}: round {epoch} does not poison")
+    if steps is not None:
+        mask = _first_steps(mask, steps)
+    n_steps = int(mask[0].any(axis=(0, 3)).sum())
+    gv = exp.global_vars
+    setup_s = time.perf_counter() - t0
+    out, deltas = {"setup_s": setup_s, "steps": n_steps}, {}
+    for name, eng in engines.items():
+        secs, launches = [], []
+        for rep in range(reps):
+            torch.cuda.synchronize()
+            fu.fused_step_update.launches = 0
+            t = time.perf_counter()
+            train = eng.train_fn(gv, tasks, idx, mask)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            launches.append(fu.fused_step_update.launches)
+            if rep < 2:
+                deltas[name, rep] = train.deltas
+            del train
+        if any(n != n_steps for n in launches):
+            raise AssertionError(f"{what} {name}: fused launches {launches} "
+                                 f"per call, {n_steps} local steps")
+        prof = _device_kernels(lambda: eng.train_fn(
+            gv, tasks, idx, _first_steps(mask, prof_steps)))
+        out[name] = {"train_s": min(secs), "train_s_all": secs,
+                     "ms_per_step": 1e3 * min(secs) / n_steps,
+                     "launches": launches[0], **prof}
+    v = deltas["vmapped", 0]
+    if not all(bool(torch.isfinite(t).all()) for d in deltas.values()
+               for t in list(d.params.values())
+               + list(d.batch_stats.values())):
+        raise AssertionError(f"{what}: non-finite deltas")
+    out["layouts"] = _max_diffs(v, deltas["grouped", 0])
+    out["vmapped_run_to_run"] = _max_diffs(v, deltas["vmapped", 1])
+    out["size"] = {part: max(float(t.abs().max())
+                             for t in getattr(v, part).values())
+                   for part in ("params", "batch_stats")}
+    del deltas, v
+    out["forward"] = _forward_ab(exp, tasks[0], idx)
+    for name in engines:
+        r = out[name]
+        log(f"phase 12 {what} {name}: train {r['train_s']:.3f}s (min of "
+            f"{reps}: {[round(s, 3) for s in r['train_s_all']]}) for "
+            f"{n_steps} steps, {r['ms_per_step']:.2f} ms a step; "
+            f"{r['launches']} fused launches = {n_steps} local steps; "
+            f"profiled {prof_steps} steps: device {r['device_ms']:.2f} ms, "
+            f"transposes {r['transpose_share']:.4f}, copies "
+            f"{r['copy_share']:.4f}, both {r['layout_share']:.4f}; top "
+            f"{r['top_kernels_us']}")
+    log(f"phase 12 {what}: deltas' max abs diff (params, BN): grouped vs "
+        f"vmapped {out['layouts']}, vmapped vs vmapped "
+        f"{out['vmapped_run_to_run']}, of deltas up to {out['size']}; "
+        f"one train-mode forward of the round's first batch, grouped vs "
+        f"vmapped: {out['forward']}; set-up {setup_s:.1f}s")
+    if not max(out["forward"].values()) <= 5e-5:
+        raise AssertionError(f"{what}: grouped forward against vmapped "
+                             f"{out['forward']}")
+    del exp, engines
+    torch.cuda.empty_cache()
+    return out
+
+
+def sequential_on_card(tmp: Path) -> dict:
+    """12d: one poisoned MNIST smoke round (round 3), clients one at a time
+    (sequential_debug) against stacked, both on the card: global ≤ 2e-3
+    and accuracy within 0.5 (tests/test_fl_integration.py:268-283); one
+    fused launch per local step of every width-1 call."""
+    import numpy as np
+    import torch
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl import rounds
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.ops import fused_update as fu
+
+    real = rounds.RoundEngine.train_fn
+    steps: list = []
+
+    def train(self, global_vars, tasks_seq, idx_seq, mask_seq, *a, **kw):
+        steps.append(int(np.asarray(mask_seq).any(axis=(1, 4)).sum()))
+        return real(self, global_vars, tasks_seq, idx_seq, mask_seq, *a,
+                    **kw)
+
+    outs = {}
+    rounds.RoundEngine.train_fn = train
+    try:
+        for name, seq in (("stacked", False), ("sequential", True)):
+            p = Params.from_yaml(REPO / "configs" / "smoke_params.yaml")
+            p.raw.update(run_dir=str(tmp / f"seq_{name}"),
+                         sequential_debug=seq)
+            exp = Experiment(p, save_results=False, device="cuda")
+            steps.clear()
+            fu.fused_step_update.launches = 0
+            t = time.perf_counter()
+            r = exp.run_round(3)
+            torch.cuda.synchronize()
+            outs[name] = {"round_s": time.perf_counter() - t,
+                          "launches": fu.fused_step_update.launches,
+                          "steps": sum(steps), "calls": len(steps),
+                          "acc": r["global_acc"],
+                          "vars": exp.global_vars.params}
+    finally:
+        rounds.RoundEngine.train_fn = real
+    a, b = outs["stacked"], outs["sequential"]
+    diff = max(float((a["vars"][k] - b["vars"][k]).abs().max())
+               for k in a["vars"])
+    gap = abs(a["acc"] - b["acc"])
+    log(f"phase 12d: MNIST round 3 sequential vs stacked on the card: "
+        f"global max abs diff {diff:.3g}, accuracy gap {gap:.3g}; "
+        f"{b['calls']} width-1 train calls, fused launches "
+        f"{a['launches']} / {b['launches']} = steps {a['steps']} / "
+        f"{b['steps']}; {a['round_s']:.2f} / {b['round_s']:.2f} s")
+    if (not diff <= 2e-3 or not gap < 0.5 or b["calls"] < 2
+            or any(r["launches"] != r["steps"] or r["steps"] == 0
+                   for r in (a, b))):
+        raise AssertionError(f"12d: sequential vs stacked: diff {diff}, "
+                             f"gap {gap}, {b['calls']} calls, launches "
+                             f"{[(r['launches'], r['steps']) for r in (a, b)]}")
+    return {"global_max_abs_diff": diff, "acc_gap": gap,
+            **{f"{n}_{k}": r[k] for n, r in outs.items()
+               for k in ("round_s", "launches", "steps")}}
+
+
+def deep_resnets_on_card() -> dict:
+    """12e: one train-mode forward of each deeper CIFAR ResNet (34, 50,
+    101, 152) at batch 8 on the card against the same forward on the CPU,
+    from the same weights and input: logits and new running stats within
+    2e-3 (float32 summation order over 34-152 layers; the CPU tests hold
+    the CPU forward to flax)."""
+    import numpy as np
+    import torch
+    from dba_mod_tpu_torch import models
+
+    out = {}
+    x = torch.from_numpy(np.random.RandomState(1).rand(8, 32, 32, 3)
+                         .astype(np.float32))
+    for fn in (models.cifar_resnet34, models.cifar_resnet50,
+               models.cifar_resnet101, models.cifar_resnet152):
+        md = fn()
+        cpu = md.init_vars(0, torch.device("cpu"))
+        card = md.init_vars(0, torch.device("cuda"))
+        with torch.no_grad():
+            l_cpu, s_cpu = md.apply(cpu, x, train=True)
+            l_gpu, s_gpu = md.apply(card, x.cuda(), train=True)
+        d_logits = float((l_gpu.cpu() - l_cpu).abs().max())
+        d_stats = max(float((s_gpu[k].cpu() - s_cpu[k]).abs().max())
+                      for k in s_cpu)
+        out[md.name] = {"logits": d_logits, "stats": d_stats,
+                        "params": sum(v.numel() for v in cpu.params.values())}
+        if not (d_logits <= 2e-3 and d_stats <= 2e-3):
+            raise AssertionError(f"12e: {md.name} card vs CPU: logits "
+                                 f"{d_logits}, running stats {d_stats}")
+    log(f"phase 12e: deeper CIFAR ResNets, train-mode forward at batch 8, "
+        f"card vs CPU max abs diff: {out}")
+    return out
+
+
+def run_phase12(tmp: Path, f32: dict) -> dict:
+    """Phase 12: the grouped client layout against the vmapped one at
+    full CIFAR (a) and Tiny-ImageNet (b) width, the grouped main path
+    through the CLI (c), sequential_debug on the card (d) and the deeper
+    CIFAR ResNets (e)."""
+    import yaml
+    t0 = time.perf_counter()
+    cifar = layout_ab(tmp / "cifar_smoke.yaml", "cifar_pretrain/smoke", 2,
+                      "12a CIFAR")
+    tiny = layout_ab(tmp / "tiny_smoke.yaml", "tiny_pretrain/smoke", 2,
+                     "12b Tiny-ImageNet", steps=16)
+    raw = dict(yaml.safe_load((tmp / "cifar_smoke.yaml").read_text()),
+               grouped_clients=True, local_eval=False,
+               run_dir=str(tmp / "runs_grouped"))
+    (tmp / "runs_grouped").mkdir()
+    cfg = tmp / "cifar_grouped.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    cli = _train_rounds(cfg, "cifar_pretrain/smoke", 2, tmp / "runs_grouped",
+                        int(raw["batch_size"]), [2], "12c grouped CIFAR")
+    del cli["folder"]
+    log(f"phase 12c: grouped CIFAR, 1 poisoned round through the CLI "
+        f"(no local battery): round_time {cli['round_s']} (phase 4, vmapped "
+        f"with the local battery: {f32['round_s']}); train "
+        f"{cli['phase_s'].get('train_fn')} s for {cli['steps']} steps "
+        f"(phase 4: {f32['phase_s'].get('train_fn')} s for "
+        f"{f32['round_steps']}); {cli['launches']} fused launches = "
+        f"{cli['steps']} local steps; acc {cli['global_acc']} backdoor "
+        f"{cli['backdoor_acc']}")
+    seq = sequential_on_card(tmp)
+    deep = deep_resnets_on_card()
+    total = time.perf_counter() - t0
+    log(f"phase 12: {total:.1f}s")
+    return {"cifar_ab": cifar, "tiny_ab": tiny, "cli": cli,
+            "sequential": seq, "deep": deep, "seconds": total,
+            "cifar_launches": cifar["grouped"]["launches"] + cli["launches"],
+            "tiny_launches": tiny["grouped"]["launches"]}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2035,7 +2363,7 @@ def main() -> int:
 
 
 def run_phases(tmp: Path, dev, kernels: list, timed, tiny_data) -> dict:
-    """Phases 4-11, each under `timed`; fills in the kernels' launches."""
+    """Phases 4-12, each under `timed`; fills in the kernels' launches."""
     path = timed("4", run_main_path, tmp)
     kernels[0]["launches"] = path["launches"]
     robust = timed("4b", run_robust_rounds, tmp)
@@ -2052,13 +2380,15 @@ def run_phases(tmp: Path, dev, kernels: list, timed, tiny_data) -> dict:
     crash = timed("9", run_crash_resume, tmp)
     asyn = timed("10", run_async, tmp)
     ph11 = timed("11", run_phase11, tmp, path, asyn["11c"])
+    ph12 = timed("12", run_phase12, tmp, path)
     kernels[0]["launches"] = (path["launches"] + asyn["launches"]
-                              + ph11["launches"])
+                              + ph11["launches"] + ph12["cifar_launches"])
+    kernels[2]["launches"] += ph12["tiny_launches"]
     return {"main_path": path, "robust_rounds": robust,
             "aggregate_ms": rules, "small_reference": small,
             "fault_round": fault, "tiny_path": tiny, "loan_path": loan,
             "bf16": bf16, "crash_resume": crash, "async": asyn,
-            "phase11": ph11}
+            "phase11": ph11, "phase12": ph12}
 
 
 if __name__ == "__main__":

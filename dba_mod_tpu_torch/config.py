@@ -161,9 +161,8 @@ _DEFAULTS: Dict[str, Any] = {
     "fused_interpret": False,      # JAX package: Pallas interpret mode;
                                    # read and ignored by the port
     "grouped_clients": False,      # grouped-layout client execution
-                                   # (models/grouped.py); measured
-                                   # perf-neutral vs the vmapped path —
-                                   # TRAIN_FLOOR.md round-5 section
+                                   # (models/grouped.py; BasicBlock
+                                   # ResNets only)
     # --- wider defense grid (ops/aggregation.py; ROADMAP item 3) ---
     "krum_m": 1,                   # multi-Krum selection count (1 = classic
                                    # Krum): the m lowest-scoring clients are
@@ -355,8 +354,6 @@ def check_ported(raw: Dict[str, Any]) -> None:
     if float(raw["heartbeat_interval_s"]) or float(
             raw["fault_host_loss_prob"]):
         raise _unported("heartbeat / fault_host_loss_prob", "A18")
-    if bool(raw["grouped_clients"]) or bool(raw["sequential_debug"]):
-        raise _unported("grouped_clients / sequential_debug", "A19")
 
 
 @dataclasses.dataclass

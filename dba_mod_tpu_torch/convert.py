@@ -10,9 +10,11 @@ tensors; ``to_jax_numpy`` is its inverse. The mapping:
   ``weight/bias`` and ``running_mean/running_var``.
 
 The port's MnistNet flattens its activations in NHWC order like flax, so
-its fc1 needs no row permutation. The CIFAR and Tiny-ImageNet ResNet-18s are
-one flax class, so their trees have the same module names (Tiny's stem
-kernel is 7×7); LoanNet's ``Dense_i`` is the port's ``fc{i+1}``.
+its fc1 needs no row permutation. Every ResNet (CIFAR-18/34/50/101/152 and
+Tiny-ImageNet's 18) is one flax class, so their trees share the module
+names: ``BasicBlock_i`` or ``Bottleneck_i`` with ``Conv_j``/``BatchNorm_j``
+in creation order, the shortcut's last (Tiny's stem kernel is 7×7);
+LoanNet's ``Dense_i`` is the port's ``fc{i+1}``.
 ``fg_memory_from_jax`` / ``fg_memory_to_jax`` carry the FoolsGold memory,
 whose rows flatten the similarity layer in each package's own layout. Used
 by the parity tests and by anyone moving a checkpoint between the two
@@ -26,8 +28,8 @@ import numpy as np
 import torch
 
 from dba_mod_tpu_torch.models import ModelVars
-from dba_mod_tpu_torch.models.resnet import (CIFAR18, TINY18, _has_shortcut,
-                                             block_plan)
+from dba_mod_tpu_torch.models.resnet import (SPECS, block_convs,
+                                             block_plan, conv_key)
 
 Nested = Dict[str, Any]
 
@@ -62,8 +64,9 @@ def _pairs(model_name: str):
         return [pair for i in range(3) for pair in (
             ((f"Dense_{i}", "kernel"), f"fc{i + 1}.weight", "dense"),
             ((f"Dense_{i}", "bias"), f"fc{i + 1}.bias", "id"))]
-    if model_name in ("CifarResNet18", "TinyResNet18"):
-        spec = CIFAR18 if model_name == "CifarResNet18" else TINY18
+    if model_name in SPECS:
+        spec = SPECS[model_name]
+        block = "Bottleneck" if spec.bottleneck else "BasicBlock"
         out = []
 
         def conv(path, key):
@@ -80,14 +83,11 @@ def _pairs(model_name: str):
         conv(("Conv_0",), "stem_conv")
         bn(("BatchNorm_0",), "stem_bn")
         for i, (cin, planes, stride) in enumerate(block_plan(spec)):
-            b = (f"BasicBlock_{i}",)
-            conv(b + ("Conv_0",), f"blocks.{i}.conv1")
-            bn(b + ("BatchNorm_0",), f"blocks.{i}.bn1")
-            conv(b + ("Conv_1",), f"blocks.{i}.conv2")
-            bn(b + ("BatchNorm_1",), f"blocks.{i}.bn2")
-            if _has_shortcut(cin, planes, stride):
-                conv(b + ("Conv_2",), f"blocks.{i}.sc_conv")
-                bn(b + ("BatchNorm_2",), f"blocks.{i}.sc_bn")
+            main, sc = block_convs(spec, cin, planes, stride)
+            for j, c in enumerate(main + ([sc] if sc else [])):
+                ck, bk = conv_key(i, c[0])
+                conv((f"{block}_{i}", f"Conv_{j}"), ck)
+                bn((f"{block}_{i}", f"BatchNorm_{j}"), bk)
         out.append((("Dense_0", "kernel"), "fc.weight", "dense"))
         out.append((("Dense_0", "bias"), "fc.bias", "id"))
         return out
@@ -106,18 +106,19 @@ def _put(tree: Nested, path, value) -> None:
     tree[path[-1]] = value
 
 
-def from_jax_numpy(model_name: str, params: Nested,
-                   batch_stats: Nested) -> ModelVars:
-    """flax-layout numpy trees → the port's ModelVars (CPU float32)."""
+def from_jax_numpy(model_name: str, params: Nested, batch_stats: Nested,
+                   dtype=np.float32) -> ModelVars:
+    """flax-layout numpy trees → the port's ModelVars (CPU, float32 or
+    ``dtype``)."""
     conv_in = {"conv": _conv_in, "dense": _dense_in, "id": np.asarray}
     p, s = {}, {}
     for path, key, kind in _pairs(model_name):
         if path[0] == "stats":
             s[key] = torch.from_numpy(np.array(_get(batch_stats, path[1:]),
-                                               np.float32))
+                                               dtype))
         else:
             p[key] = torch.from_numpy(np.array(
-                conv_in[kind](_get(params, path)), np.float32))
+                conv_in[kind](_get(params, path)), dtype))
     return ModelVars(p, s)
 
 

@@ -92,7 +92,17 @@ def make_client_step(model_def: ModelDef, data: DeviceData,
             loss = ce
         return loss, (logits, new_bn)
 
-    grad_fn = vmap(grad_and_value(loss_fn, has_aux=True))
+    return make_segment_step(vmap(grad_and_value(loss_fn, has_aux=True)),
+                             data, hyper, fg_enabled)
+
+
+def make_segment_step(grad_fn, data: DeviceData, hyper: RoundHyper,
+                      fg_enabled: bool):
+    """The segment loop around `grad_fn(params, bn, x, y, bmask, anchor,
+    alpha, drop) -> (grads, (loss [C], (logits [C, B, K], new_bn)))` over
+    the stacked [C, ...] state: the vmapped step above, or the grouped
+    layout's (fl/grouped_client.py). Returns the client_step of
+    make_client_step's contract."""
     dist_fn = vmap(tree_dist_norm)
 
     def client_step(start_vars: ModelVars, benign_mom: Dict,

@@ -324,6 +324,12 @@ class Experiment:
         self.engine = RoundEngine(params, self.model_def, self.device_data,
                                   self.eval_plans,
                                   num_segments=self.interval)
+        # sequential_debug trains through width-1 calls that the fault
+        # layer's injection and screen do not cover: refuse the combination
+        # rather than silently not injecting (as the JAX package does)
+        if self.engine.robust and self.engine.sequential:
+            raise ValueError("fault_injection/screen_updates are not "
+                             "supported with sequential_debug")
         self.max_round_retries = int(params.get("max_round_retries", 2))
         self.retry_backoff_s = float(params.get("retry_backoff_s", 0.0))
         # post-merge model-health sentinel (README "Self-healing

@@ -1,7 +1,6 @@
 """The round engine: train + aggregate over the stacked client axis, plus
 the local/global evaluation batteries, the defense forensics and the
-post-merge health sentinel (port of dba_mod_tpu/fl/rounds.py; its grouped
-branch is ROADMAP A19).
+post-merge health sentinel (port of dba_mod_tpu/fl/rounds.py).
 
 A round is
 
@@ -18,6 +17,12 @@ A round is
                  Krum, trimmed mean, median over the full state, BN stats
                  included; FoolsGold over the accumulators, params only);
   evaluations  — the per-client local battery and the global battery.
+
+The client step is fl/client.py's vmapped one, or with ``grouped_clients``
+fl/grouped_client.py's grouped layout (BasicBlock ResNets only). With
+``sequential_debug`` the round trains its clients one at a time through
+width-1 ``train_fn`` calls (:meth:`RoundEngine.train_sequential`) and
+stitches the results back together.
 
 `round_fn` runs them all and returns the payload in the order the JAX
 package's ``Experiment.finalize_round`` unpacks it, with RobustStats (or
@@ -47,8 +52,10 @@ from dba_mod_tpu_torch.fl.device_data import DeviceData
 from dba_mod_tpu_torch.fl.evaluation import (EvalResult, instrument_eval,
                                              make_eval_fn,
                                              make_stacked_eval_fn)
+from dba_mod_tpu_torch.fl.grouped_client import make_grouped_client_step
 from dba_mod_tpu_torch.fl.state import ClientTask, RoundHyper
 from dba_mod_tpu_torch.models import ModelDef, ModelVars
+from dba_mod_tpu_torch.models.grouped import supports_grouped
 from dba_mod_tpu_torch.ops import aggregation as agg
 from dba_mod_tpu_torch.ops.losses import tree_global_norm
 from dba_mod_tpu_torch.utils import telemetry
@@ -444,8 +451,17 @@ class RoundEngine:
         self.num_segments = num_segments
         self.device = data.device
         self.fg_enabled = hyper.aggregation == cfg.AGGR_FOOLSGOLD
-        self.client_step = make_client_step(model_def, data, hyper,
-                                            self.fg_enabled)
+        # the grouped client layout (models/grouped.py): default off; the
+        # port has no sharded clients axis, so the model decides
+        self.use_grouped = bool(params.get("grouped_clients", False))
+        if self.use_grouped and not supports_grouped(model_def):
+            raise ValueError(
+                "grouped_clients=true requires a BasicBlock-ResNet "
+                "model and an unsharded clients axis")
+        make_step = (make_grouped_client_step if self.use_grouped
+                     else make_client_step)
+        self.client_step = make_step(model_def, data, hyper, self.fg_enabled)
+        self.sequential = bool(params.get("sequential_debug", False))
         # the fault layer (fl/faults.py and the quarantine pass): with
         # fault_injection and the screen both off the robust path never runs
         self.fault_cfg = flt.FaultConfig.from_params(params)
@@ -541,6 +557,47 @@ class RoundEngine:
         return TrainResult(deltas, fg_total, fg_feature, metrics, delta_norms,
                            torch.stack(seg_bloss),
                            torch.stack(seg_bdist), seg_deltas)
+
+    def train_sequential(self, global_vars: ModelVars,
+                         tasks_seq: List[ClientTask], idx_seq: np.ndarray,
+                         mask_seq: np.ndarray,
+                         dropout_seq: Optional[List[tuple]] = None
+                         ) -> TrainResult:
+        """``sequential_debug``: the clients one at a time, each a width-1
+        :meth:`train_fn` call on its own slice of the task rows, plans and
+        dropout keep masks, stitched back into the stacked TrainResult
+        (dba_mod_tpu/fl/experiment.py::_train_sequential)."""
+        C = idx_seq.shape[1]
+        outs = []
+        for c in range(C):
+            tasks_c = [ClientTask(*(np.asarray(f)[c:c + 1] for f in t))
+                       for t in tasks_seq]
+            drop_c = (None if dropout_seq is None else
+                      [tuple(d[c:c + 1] for d in seg) for seg in dropout_seq])
+            outs.append(self.train_fn(global_vars, tasks_c,
+                                      idx_seq[:, c:c + 1],
+                                      mask_seq[:, c:c + 1], drop_c))
+
+        def cat(trees, dim=0):
+            return {k: torch.cat([t[k] for t in trees], dim)
+                    for k in trees[0]}
+
+        def cat_vars(vs):
+            return ModelVars(cat([v.params for v in vs]),
+                             cat([v.batch_stats for v in vs]))
+
+        return TrainResult(
+            deltas=cat_vars([o.deltas for o in outs]),
+            fg_grads=cat([o.fg_grads for o in outs]),
+            fg_feature=(torch.cat([o.fg_feature for o in outs])
+                        if self.fg_enabled else None),
+            metrics=ClientMetrics(*(torch.cat(f, dim=1) for f in
+                                    zip(*(o.metrics for o in outs)))),
+            delta_norms=torch.cat([o.delta_norms for o in outs]),
+            batch_loss=torch.cat([o.batch_loss for o in outs], dim=1),
+            batch_dist=torch.cat([o.batch_dist for o in outs], dim=1),
+            seg_deltas=[cat_vars([o.seg_deltas[s] for o in outs])
+                        for s in range(len(outs[0].seg_deltas))])
 
     @staticmethod
     def _delta(stacked: ModelVars, global_vars: ModelVars) -> ModelVars:
@@ -723,8 +780,10 @@ class RoundEngine:
         train and aggregate phases in synced ``round/train`` and
         ``round/aggregate`` spans (telemetry's split path)."""
         with tel.span("round/train"):
-            train = self.train_fn(global_vars, tasks_seq, idx_seq, mask_seq,
-                                  dropout_seq)
+            train_fn = (self.train_sequential if self.sequential
+                        else self.train_fn)
+            train = train_fn(global_vars, tasks_seq, idx_seq, mask_seq,
+                             dropout_seq)
             tel.sync(train.deltas)
         with tel.span("round/aggregate"):
             res, stats, fstats, deltas_out = self._aggregate_round(

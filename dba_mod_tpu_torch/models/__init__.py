@@ -11,7 +11,12 @@ axis. ``ModelDef`` keeps the JAX package's metadata:
   running stats / takes dropout keep masks in train mode;
 - ``num_classes``;
 - ``dtype``: the compute type (``compute_dtype``). Parameters, BN running
-  stats and the logits stay float32; forward and backward run in it.
+  stats and the logits stay float32; forward and backward run in it;
+- ``resnet_spec``: a ResNet's ``models/resnet.py`` spec (None for the
+  other models), which the grouped client layout reads (models/grouped.py).
+
+``cifar_resnet34`` / ``50`` / ``101`` / ``152`` build the deeper CIFAR
+ResNets; as in the JAX package no config key selects them.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ class ModelDef:
     _apply: Callable[..., Tuple[torch.Tensor, Tree]]
     has_dropout: bool = False
     dtype: torch.dtype = torch.float32
+    resnet_spec: Optional[resnet.ResNetSpec] = None
 
     def init_vars(self, seed: int, device: torch.device) -> ModelVars:
         """torch-default init from a CPU generator seeded with `seed`
@@ -81,6 +87,32 @@ def _resnet(spec: resnet.ResNetSpec, num_classes: int, dtype: torch.dtype):
     return init, apply
 
 
+def _resnet_def(name: str, num_classes: int, dtype: torch.dtype) -> ModelDef:
+    spec = resnet.SPECS[name]
+    init, apply = _resnet(spec, num_classes, dtype)
+    hw = 32 if spec.stem == "cifar" else 64
+    return ModelDef(name=name, input_shape=(hw, hw, 3),
+                    num_classes=num_classes, similarity_path=("fc.weight",),
+                    has_batch_stats=True, _init=init, _apply=apply,
+                    dtype=dtype, resnet_spec=spec)
+
+
+def cifar_resnet34(dtype: torch.dtype = torch.float32) -> ModelDef:
+    return _resnet_def("CifarResNet34", 10, dtype)
+
+
+def cifar_resnet50(dtype: torch.dtype = torch.float32) -> ModelDef:
+    return _resnet_def("CifarResNet50", 10, dtype)
+
+
+def cifar_resnet101(dtype: torch.dtype = torch.float32) -> ModelDef:
+    return _resnet_def("CifarResNet101", 10, dtype)
+
+
+def cifar_resnet152(dtype: torch.dtype = torch.float32) -> ModelDef:
+    return _resnet_def("CifarResNet152", 10, dtype)
+
+
 def compute_dtype_of(params: cfg.Params) -> torch.dtype:
     """The compute type a config asks for (dba_mod_tpu/models/__init__.py:
     82-88)."""
@@ -105,17 +137,9 @@ def build_model(params: cfg.Params) -> ModelDef:
                             p, x, dtype),
                         dtype=dtype)
     if t == cfg.TYPE_CIFAR:
-        init, apply = _resnet(resnet.CIFAR18, 10, dtype)
-        return ModelDef(name="CifarResNet18", input_shape=(32, 32, 3),
-                        num_classes=10, similarity_path=("fc.weight",),
-                        has_batch_stats=True, _init=init, _apply=apply,
-                        dtype=dtype)
+        return _resnet_def("CifarResNet18", 10, dtype)
     if t == cfg.TYPE_TINYIMAGENET:
-        init, apply = _resnet(resnet.TINY18, 200, dtype)
-        return ModelDef(name="TinyResNet18", input_shape=(64, 64, 3),
-                        num_classes=200, similarity_path=("fc.weight",),
-                        has_batch_stats=True, _init=init, _apply=apply,
-                        dtype=dtype)
+        return _resnet_def("TinyResNet18", 200, dtype)
     if t == cfg.TYPE_LOAN:
         return ModelDef(name="LoanNet", input_shape=(loan.IN_DIM,),
                         num_classes=loan.NUM_CLASSES,

@@ -25,14 +25,16 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean cross entropy over valid entries. `logits` may already be
-    log-probabilities (log_softmax is idempotent — MnistNet.py:31)."""
+    """Mean cross entropy over valid entries of the batch (the last axis of
+    `labels`; a leading client axis, as the grouped client step passes,
+    gives one mean per client). `logits` may already be log-probabilities
+    (log_softmax is idempotent — MnistNet.py:31)."""
     nll = _nll(logits, labels)
     if mask is None:
-        return torch.mean(nll)
+        return torch.mean(nll, dim=-1)
     maskf = mask.to(nll.dtype)
-    denom = torch.clamp_min(torch.sum(maskf), 1.0)
-    return torch.sum(nll * maskf) / denom
+    denom = torch.clamp_min(torch.sum(maskf, dim=-1), 1.0)
+    return torch.sum(nll * maskf, dim=-1) / denom
 
 
 def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,

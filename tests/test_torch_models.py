@@ -46,18 +46,23 @@ def _pair(kind, seed=3):
 @pytest.mark.parametrize("train", [False, True])
 def test_forward_matches_flax(kind, train):
     jdef, jmv, tdef, tmv = _pair(kind)
-    # perturb the BN stats so eval mode exercises them
+    # perturb the BN stats so eval mode exercises them: the means by
+    # N(0, 0.1) (a shift of +0.1..0.5 silences every ReLU, and the eval
+    # logits were then the head's bias alone), the variances by U(0.1, 0.5)
     if tmv.batch_stats:
         rng = np.random.RandomState(0)
         for k, v in tmv.batch_stats.items():
             v.add_(torch.from_numpy(
-                rng.uniform(0.1, 0.5, v.shape).astype(np.float32)))
+                (rng.randn(*v.shape) * 0.1 if k.endswith("mean")
+                 else rng.uniform(0.1, 0.5, v.shape)).astype(np.float32)))
         _, stats = convert.to_jax_numpy(tdef.name, tmv)
         jmv = JModelVars(jmv.params, stats)
     x = np.random.RandomState(1).rand(6, *tdef.input_shape).astype(
         np.float32)
     jl, jstats = jdef.apply(jmv, x, train=train)
     tl, tstats = tdef.apply(tmv, torch.from_numpy(x), train=train)
+    if tdef.has_batch_stats:
+        assert float((tl - tmv.params["fc.bias"]).abs().max()) > 1e-3
     np.testing.assert_allclose(tl.detach().numpy(), np.asarray(jl), rtol=0,
                                atol=1e-5)
     if tdef.has_batch_stats:

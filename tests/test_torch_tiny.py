@@ -32,7 +32,8 @@ from dba_mod_tpu_torch.fl.state import build_client_tasks
 from dba_mod_tpu_torch.models import _resnet, build_model, resnet
 from dba_mod_tpu_torch.models.resnet import TINY18
 from dba_mod_tpu_torch.ops import triggers
-from test_torch_slice import _check_acc, _engine_round, _experiments
+from test_torch_slice import (_check_acc, _engine_round, _experiments,
+                              shared_cache)
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 
@@ -265,15 +266,50 @@ def test_tiny_data_triggers_and_tasks_equal_jax(tmp_path):
         == [-1, 1, -1, -1, -1]
 
 
-def test_tiny_round_matches_jax(tmp_path):
+def test_tiny_round_matches_jax(tmp_path, tmp_path_factory):
     """benchmarks/parity_ab.py::TINY_AB: one identical-state round with
     its lone (centralized, combined-trigger) adversary poisoning."""
     jexp, texp = _experiments(dict(TINY_AB), tmp_path, save=False)
     assert texp.params.is_centralized_attack
-    per_client, g_diff, jev, tev = _engine_round(jexp, texp, 1)
+    per_client, g_diff, jev, tev = _engine_round(
+        jexp, texp, 1, share=("TINY_AB", TINY_AB["scale_weights_poison"],
+                              shared_cache(tmp_path_factory)))
     assert max(per_client) <= 0.4, per_client
     assert g_diff <= 0.15, g_diff
     _check_acc(jev, tev)
+
+
+def test_tiny_model_replacement_drives_running_var_negative_in_both(
+        tmp_path, tmp_path_factory):
+    """configs/tiny_params.yaml scales the adversary ×100, as CIFAR's does,
+    and FedAvg averages the BN running stats with the scaled delta: on the
+    card the first poisoned Tiny round's global eval loss is NaN (PERF.md).
+    The JAX package does the same from the same weights: TINY_AB at
+    γ = 100 leaves the least running variance negative on both sides, in
+    the same layer and channel, and both global eval losses NaN. The two
+    agree to 1e-4 relative (measured -12.770258 JAX, -12.770022 port, 1.8e-5:
+    γ = 100 multiplies the per-client differences of the γ = 2 round by
+    50)."""
+    jexp, texp = _experiments(dict(TINY_AB, scale_weights_poison=100.0),
+                              tmp_path, save=False)
+    _, _, jev, tev = _engine_round(
+        jexp, texp, 1, share=("TINY_AB", TINY_AB["scale_weights_poison"],
+                              shared_cache(tmp_path_factory)))
+    assert np.isnan(float(jev.clean.loss)) and np.isnan(float(tev.clean.loss))
+    jg = jax.device_get(jexp.global_vars)
+    tvars = convert.to_jax_numpy(texp.model_def.name, texp.global_vars)[1]
+    leaves = []
+    for side in (jg.batch_stats, tvars):
+        flat = jax.tree_util.tree_flatten_with_path(side)[0]
+        var = {jax.tree_util.keystr(k): np.asarray(v) for k, v in flat
+               if jax.tree_util.keystr(k).endswith("['var']")}
+        name = min(var, key=lambda k: var[k].min())
+        leaves.append((name, int(var[name].argmin()),
+                       float(var[name].min())))
+    (jname, jch, jmin), (tname, tch, tmin) = leaves
+    assert jmin < 0 and tmin < 0, leaves
+    assert (jname, jch) == (tname, tch), leaves
+    assert abs(tmin - jmin) <= 1e-4 * abs(jmin), leaves
 
 
 def test_fused_leaf_tables_cover_tiny_and_loan_in_one_launch():
@@ -305,34 +341,3 @@ def test_fused_leaf_tables_cover_tiny_and_loan_in_one_launch():
         fu._layout([2 ** 31 - 100], C)
     with pytest.raises(ValueError, match="grid"):
         fu._layout([2 ** 30] * 900, C)
-
-
-def test_tiny_model_replacement_drives_running_var_negative_in_both(
-        tmp_path):
-    """configs/tiny_params.yaml scales the adversary ×100, as CIFAR's does,
-    and FedAvg averages the BN running stats with the scaled delta: on the
-    card the first poisoned Tiny round's global eval loss is NaN (PERF.md).
-    The JAX package does the same from the same weights: TINY_AB at
-    γ = 100 leaves the least running variance negative on both sides, in
-    the same layer and channel, and both global eval losses NaN. The two
-    agree to 1e-4 relative (measured -12.770258 JAX, -12.770022 port, 1.8e-5:
-    γ = 100 multiplies the per-client differences of the γ = 2 round by
-    50)."""
-    jexp, texp = _experiments(dict(TINY_AB, scale_weights_poison=100.0),
-                              tmp_path, save=False)
-    _, _, jev, tev = _engine_round(jexp, texp, 1)
-    assert np.isnan(float(jev.clean.loss)) and np.isnan(float(tev.clean.loss))
-    jg = jax.device_get(jexp.global_vars)
-    tvars = convert.to_jax_numpy(texp.model_def.name, texp.global_vars)[1]
-    leaves = []
-    for side in (jg.batch_stats, tvars):
-        flat = jax.tree_util.tree_flatten_with_path(side)[0]
-        var = {jax.tree_util.keystr(k): np.asarray(v) for k, v in flat
-               if jax.tree_util.keystr(k).endswith("['var']")}
-        name = min(var, key=lambda k: var[k].min())
-        leaves.append((name, int(var[name].argmin()),
-                       float(var[name].min())))
-    (jname, jch, jmin), (tname, tch, tmin) = leaves
-    assert jmin < 0 and tmin < 0, leaves
-    assert (jname, jch) == (tname, tch), leaves
-    assert abs(tmin - jmin) <= 1e-4 * abs(jmin), leaves
