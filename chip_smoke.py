@@ -127,11 +127,33 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    fused launch per step of every width-1 call; (e) one train-mode forward
    of each deeper CIFAR ResNet (34/50/101/152) at batch 8, card against
    CPU, logits and running stats within 2e-3.
+13. the clients mesh, multi-process worlds and the elastic layer: (a) in
+   a fresh process under deterministic kernels, phase 4's config from its
+   pretrain through the unsharded engine and through a 2-shard mesh on
+   [cuda:0, cuda:0]: one train-mode forward of the round's first batch as
+   one stack and as two shards within 5e-5 (logits, new BN stats), one
+   local step per client through both engines within 5e-5 (one fused
+   launch a step, two on the mesh), then one poisoned round without the
+   local battery through each experiment: the mesh's fused launches are
+   its shards' local steps, accuracies within 1 point, round_time beside
+   phase 4's, the new BN stats' gap printed; (b) a 2-rank world on the
+   one card (gloo) as two ``main train`` processes with torchrun's
+   environment, one poisoned round of phase 4's config without the local
+   battery from its pretrain: bitwise-equal rank models (each rank's
+   logged digest), rank 0 alone writes the run folder, round_time and the
+   all-gather seconds, each rank's fused launches; (c) the elastic drill
+   at MNIST size under deterministic kernels: a 2-rank world with
+   heartbeats, rank 1 SIGKILLed once two rounds are committed, the
+   survivor exits 77 within watchdog_hard_s plus 10 s, one process
+   relaunched with ``--resume auto`` finishes in the same folder with
+   every round once, and the rows through the resume point equal an
+   uninterrupted 2-rank world's, run beside it.
 
 Phase 3 also runs (as 3b) at the Tiny-ImageNet size (FoolsGold off and on)
 and at the LOAN size, so the kernels line has five rows. The CIFAR row's
-launches are phase 4's plus phase 10b's, 11a's, both 11b runs' and the
-grouped ones of 12a and 12c; the Tiny row's are phase 6's plus 12b's grouped
+launches are phase 4's plus phase 10b's, 11a's, both 11b runs', the
+grouped ones of 12a and 12c, 13a's mesh round and both 13b ranks'; the Tiny
+row's are phase 6's plus 12b's grouped
 ones. The script prints its own total seconds.
 
 The last lines are a JSON object with the kernels' numbers, the card's name
@@ -2288,6 +2310,372 @@ def run_phase12(tmp: Path, f32: dict) -> dict:
             "tiny_launches": tiny["grouped"]["launches"]}
 
 
+# --------------------------------------------------------------- phase 13
+def _world_env(rank: int, world: int, port: int) -> dict:
+    """torchrun's environment for one rank of a `world`-rank run on this
+    host (all ranks share the one card, so the port picks gloo)."""
+    import os
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+               LOCAL_WORLD_SIZE=str(world))
+    env["PYTHONPATH"] = str(REPO) + (
+        ":" + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch_world(cfg_path: Path, world: int, args: list, logs: list):
+    """`world` ranks of `main train` on the card, rank r's output in
+    logs[r]."""
+    from dba_mod_tpu_torch import crash_smoke
+    port = _free_port()
+    return [crash_smoke.launch(cfg_path, "cuda", args, logs[r],
+                               env=_world_env(r, world, port))
+            for r in range(world)]
+
+
+def _wait_all(procs, timeout: float) -> list:
+    t_end = time.monotonic() + timeout
+    try:
+        return [p.wait(timeout=max(1.0, t_end - time.monotonic()))
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def mesh_shards(tmp: Path) -> int:
+    """13a, in a fresh process under deterministic kernels: phase 4's
+    config from its pretrain, the unsharded engine against a 2-shard mesh
+    on [cuda:0, cuda:0]. One train-mode forward of the round's first batch
+    (the 10 clients vmapped at once, and as two shards of 5), one local
+    step per client through both engines' train_fn, then one poisoned
+    round without the local battery through each experiment: the mesh's
+    fused launches are each shard's local steps, and the new global
+    model's BN running stats are printed against the unsharded round's
+    (cuDNN picks its algorithms by the vmapped convolution's width, and
+    the round's ×100 adversary amplifies a one-step difference over its
+    steps, so the round is held by its accuracies; the bounds sit on the
+    forward and the one step). Prints one JSON line."""
+    import torch
+    import yaml
+    from dba_mod_tpu_torch.utils.device import use_deterministic_kernels
+    use_deterministic_kernels()
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.models import ModelVars
+    from dba_mod_tpu_torch.ops import fused_update as fu
+    from dba_mod_tpu_torch.parallel.mesh import shard_bounds
+
+    raw = dict(yaml.safe_load((tmp / "cifar_smoke.yaml").read_text()),
+               resumed_model=True, resumed_model_name="cifar_pretrain/smoke",
+               local_eval=False, save_model=False)
+    t0 = time.perf_counter()
+    exps = {"plain": Experiment(Params.from_dict(raw), save_results=False,
+                                device="cuda"),
+            "mesh": Experiment(Params.from_dict(raw), save_results=False,
+                               device="cuda",
+                               mesh_devices=["cuda:0", "cuda:0"])}
+    setup_s = time.perf_counter() - t0
+    plain, mesh = exps["plain"], exps["mesh"]
+    if mesh.engine.mesh is None or mesh.engine.mesh.size != 2:
+        raise AssertionError("13a: the mesh engine is not sharded")
+    gv = plain.global_vars          # the pretrain, before the rounds
+    bounds = shard_bounds(mesh.engine.mesh, int(plain.params["no_models"]))
+    # one poisoned round through each experiment
+    rounds_ = {}
+    for name, e in exps.items():
+        seen = []
+        real = e.engine.train_fn
+
+        def spy(gv_, tasks_, idx_, mask_, *a, _real=real, _seen=seen):
+            _seen.append(mask_)
+            return _real(gv_, tasks_, idx_, mask_, *a)
+        e.engine.train_fn = spy
+        fu.fused_step_update.launches = 0
+        r = e.run_round(2)
+        torch.cuda.synchronize()
+        (m,) = seen
+        if name == "mesh":
+            want = sum(int(m[s][lo:hi].any(axis=(0, 3)).sum())
+                       for s in range(m.shape[0]) for lo, hi in bounds)
+        else:
+            want = int(sum(m[s].any(axis=(0, 3)).sum()
+                           for s in range(m.shape[0])))
+        rounds_[name] = {"round_time": r["round_time"],
+                         "launches": fu.fused_step_update.launches,
+                         "steps": want, "global_acc": r["global_acc"],
+                         "backdoor_acc": r["backdoor_acc"]}
+        if rounds_[name]["launches"] != want:
+            raise AssertionError(f"13a {name}: {rounds_[name]}")
+    tasks, idx, mask, _ = plain.build_static_round_inputs(2)
+    C = int(idx.shape[1])
+    if not tasks[0].poisoning_per_batch.any():
+        raise AssertionError("13a: round 2's inputs do not poison")
+    # one train-mode forward of the round's first batch, stamped
+    md, data, dev = plain.model_def, plain.device_data, plain.device
+    task = tasks[0].to_device(dev)
+    x, y = data.fetch_train(task.slot,
+                            torch.from_numpy(idx[0][:, 0, 0]).to(dev))
+    x, _, _ = data.stamp(x, y, task.adv_index, task.poisoning_per_batch)
+    p, st = ({k: v.expand((C,) + v.shape).contiguous() for k, v in t.items()}
+             for t in gv)
+
+    def fwd(lo, hi):
+        return torch.func.vmap(lambda pp, ss, xx: md.apply(
+            ModelVars(pp, ss), xx, train=True))(
+            {k: v[lo:hi] for k, v in p.items()},
+            {k: v[lo:hi] for k, v in st.items()}, x[lo:hi])
+    with torch.no_grad():
+        lv, sv = fwd(0, C)
+        parts = [fwd(lo, hi) for lo, hi in bounds]
+    ls = torch.cat([q[0] for q in parts])
+    ss = {k: torch.cat([q[1][k] for q in parts]) for k in sv}
+    forward = {"logits": float((lv - ls).abs().max()),
+               "batch_stats": max(float((sv[k] - ss[k]).abs().max())
+                                  for k in sv)}
+    # one local step per client through each engine
+    one = _first_steps(mask, 1)
+    launches, deltas = {}, {}
+    for name, e in exps.items():
+        fu.fused_step_update.launches = 0
+        deltas[name] = e.engine.train_fn(gv, tasks, idx, one).deltas
+        torch.cuda.synchronize()
+        launches[name] = fu.fused_step_update.launches
+    if launches != {"plain": 1, "mesh": 2}:
+        raise AssertionError(f"13a: one step's fused launches {launches}")
+    step = _max_diffs(deltas["plain"], deltas["mesh"])
+    step_size = {part: max(float(t.abs().max()) for t in
+                           getattr(deltas["plain"], part).values())
+                 for part in ("params", "batch_stats")}
+    del deltas
+    bn = {k: float((plain.global_vars.batch_stats[k]
+                    - mesh.global_vars.batch_stats[k]).abs().max())
+          for k in plain.global_vars.batch_stats}
+    bn_size = max(float(v.abs().max())
+                  for v in plain.global_vars.batch_stats.values())
+    out = {"setup_s": setup_s, "shards": bounds, "forward": forward,
+           "one_step": step, "one_step_size": step_size,
+           "rounds": rounds_, "bn_stats_max_diff": max(bn.values()),
+           "bn_stats_size": bn_size,
+           "finite": all(bool(torch.isfinite(v).all()) for v in
+                         list(mesh.global_vars.params.values())
+                         + list(mesh.global_vars.batch_stats.values()))}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def run_mesh_shards(tmp: Path, f32: dict) -> dict:
+    """13a in its fresh process (see mesh_shards)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"),
+                           "mesh-shards", str(tmp)], capture_output=True,
+                          text=True, timeout=400)
+    if proc.returncode != 0:
+        raise AssertionError("13a failed:\n" + proc.stdout[-3000:]
+                             + proc.stderr[-3000:])
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["seconds"] = time.perf_counter() - t0
+    r = out["rounds"]
+    log(f"phase 13a: 2-shard mesh on [cuda:0, cuda:0], deterministic "
+        f"kernels: shards {out['shards']}; one train-mode forward, 2 shards "
+        f"vs 10 lanes at once: {out['forward']}; one local step per client "
+        f"through the mesh vs the unsharded engine: deltas' max abs diff "
+        f"{out['one_step']} of deltas up to {out['one_step_size']}; one "
+        f"poisoned round (no local battery): mesh {r['mesh']} vs unsharded "
+        f"{r['plain']} (phase 4, with the local battery: round_time "
+        f"{f32['round_s']}); new global BN stats max abs diff "
+        f"{out['bn_stats_max_diff']:.3g} of stats up to "
+        f"{out['bn_stats_size']:.3g}; {out['seconds']:.1f}s")
+    if not max(out["forward"].values()) <= 5e-5:
+        raise AssertionError(f"13a: sharded forward {out['forward']}")
+    if not max(out["one_step"].values()) <= 5e-5:
+        raise AssertionError(f"13a: one sharded step {out['one_step']}")
+    if not out["finite"]:
+        raise AssertionError("13a: non-finite mesh global model")
+    for k in ("global_acc", "backdoor_acc"):
+        if not abs(r["mesh"][k] - r["plain"][k]) <= 1.0:
+            raise AssertionError(f"13a: round {k} {r}")
+    return out
+
+
+def _digests(text: str) -> list:
+    import re
+    return re.findall(r"global model sha256 ([0-9a-f]{64})", text)
+
+
+def run_world_cifar(tmp: Path, f32: dict) -> dict:
+    """13b: a 2-rank world on the one card (gloo), launched as two `main
+    train` processes with torchrun's environment: phase 4's config without
+    the local battery, one poisoned round from its pretrain. Both ranks end with bitwise the same
+    model (their logged digests), only rank 0 writes the run folder, each
+    rank's fused launches are its clients' local steps."""
+    import re
+    import yaml
+    raw = dict(yaml.safe_load((tmp / "cifar_smoke.yaml").read_text()),
+               num_devices=-1, run_name="world", save_on_epochs=[],
+               local_eval=False, run_dir=str(tmp / "runs_world"))
+    cfg = tmp / "cifar_world.yaml"
+    cfg.write_text(yaml.safe_dump(raw))
+    logs = [tmp / f"world_rank{r}.log" for r in range(2)]
+    t0 = time.perf_counter()
+    rcs = _wait_all(_launch_world(cfg, 2, ["--resume", "cifar_pretrain/smoke",
+                                           "--epochs", "2"], logs), 400)
+    wall = time.perf_counter() - t0
+    texts = [p.read_text() for p in logs]
+    if rcs != [0, 0]:
+        raise AssertionError(f"13b: ranks exited {rcs}:\n"
+                             + "\n".join(t[-3000:] for t in texts))
+    digests = [_digests(t) for t in texts]
+    if len(digests[0]) != 1 or digests[0] != digests[1]:
+        raise AssertionError(f"13b: rank models differ: {digests}")
+    if "backend gloo" not in texts[0] or "saved" in texts[1]:
+        raise AssertionError("13b: backend or writer wrong")
+    folder = tmp / "runs_world" / "world"
+    rows = [json.loads(l) for l in
+            (folder / "metrics.jsonl").read_text().splitlines() if l.strip()]
+    if [r["epoch"] for r in rows] != [2] or not rows[0]["adversaries"] \
+            or not math.isfinite(float(rows[0]["global_acc"])):
+        raise AssertionError(f"13b: recorded rows {rows}")
+    launches = [int(re.findall(r"fused update kernel launches: (\d+)",
+                               t)[-1]) for t in texts]
+    gather_s = [float(x) for t in texts for x in re.findall(
+        r"client stacks: \d+ bytes a rank in ([\d.]+)s", t)]
+    out = {"digest": digests[0][0], "launches": launches,
+           "round_time": rows[0]["round_time"], "gather_s": gather_s,
+           "global_acc": rows[0]["global_acc"],
+           "backdoor_acc": rows[0]["backdoor_acc"], "wall_s": wall}
+    log(f"phase 13b: 2-rank gloo world on one card, 1 poisoned CIFAR round "
+        f"through the CLI: both ranks' global model sha256 "
+        f"{digests[0][0][:16]}... equal; rank 0 alone wrote "
+        f"{sorted(p.name for p in folder.iterdir() if p.is_file())}; "
+        f"round_time {rows[0]['round_time']:.3f}s (phase 4: "
+        f"{f32['round_s']}); all-gather seconds {gather_s}; fused launches "
+        f"by rank {launches}; acc {rows[0]['global_acc']} backdoor "
+        f"{rows[0]['backdoor_acc']}; {wall:.1f}s for the two processes")
+    return out
+
+
+ELASTIC_MNIST = dict(
+    type="mnist", lr=0.1, batch_size=16, epochs=5, no_models=4,
+    number_of_total_participants=8, eta=0.8, aggregation_methods="mean",
+    internal_epochs=1, is_poison=False, synthetic_data=True,
+    synthetic_train_size=1024, synthetic_test_size=256, momentum=0.9,
+    decay=0.0005, sampling_dirichlet=False, local_eval=False,
+    random_seed=5, num_devices=-1, run_name="elastic", save_model=True,
+    graceful_shutdown=True, heartbeat_interval_s=0.2,
+    heartbeat_timeout_s=1.2, watchdog_soft_s=10, watchdog_hard_s=20)
+
+
+def run_elastic_drill(tmp: Path) -> dict:
+    """13c: the elastic drill at MNIST size on the card, under
+    deterministic kernels: a 2-rank world with heartbeats SIGKILLs rank 1
+    once two rounds are committed; the survivor exits 77 within
+    watchdog_hard_s plus slack; one relaunched process (--resume auto)
+    finishes in the same folder with every round once; the rows through
+    the resume point are bitwise those of an uninterrupted 2-rank world
+    run beside it."""
+    import yaml
+    from dba_mod_tpu_torch import checkpoint as ckpt
+    from dba_mod_tpu_torch import crash_smoke
+    from dba_mod_tpu_torch.utils.run_guard import EXIT_PEER_LOST
+    cfgs = {}
+    for name in ("ref", "crash"):
+        cfgs[name] = tmp / f"elastic_{name}.yaml"
+        cfgs[name].write_text(yaml.safe_dump(dict(
+            ELASTIC_MNIST, run_dir=str(tmp / f"elastic_{name}"))))
+    logs = {n: [tmp / f"elastic_{n}_{r}.log" for r in range(2)]
+            for n in cfgs}
+    t0 = time.perf_counter()
+    ref = _launch_world(cfgs["ref"], 2, ["--deterministic"], logs["ref"])
+    crash = _launch_world(cfgs["crash"], 2, ["--deterministic"],
+                          logs["crash"])
+    folder = tmp / "elastic_crash" / "elastic"
+    try:
+        t_end = time.monotonic() + 300
+        while (ckpt.manifest_epoch(folder / "model_last.pt.tar") or 0) < 2:
+            if time.monotonic() > t_end or any(p.poll() is not None
+                                               for p in crash):
+                raise AssertionError(
+                    "13c: no two committed rounds before the kill:\n"
+                    + logs["crash"][0].read_text()[-3000:])
+            time.sleep(0.02)
+        crash[1].kill()
+        crash[1].wait()
+        t_kill = time.perf_counter()
+        rc = crash[0].wait(timeout=ELASTIC_MNIST["watchdog_hard_s"] + 40)
+        exit_s = time.perf_counter() - t_kill
+    finally:
+        for p in crash:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rc != EXIT_PEER_LOST or exit_s > ELASTIC_MNIST["watchdog_hard_s"] \
+            + 10 or "peer lost" not in logs["crash"][0].read_text():
+        raise AssertionError(f"13c: survivor exited {rc} after {exit_s:.1f}s"
+                             f":\n" + logs["crash"][0].read_text()[-3000:])
+    resume_pt = ckpt.latest_verified_checkpoint(folder, quarantine=False)
+    resume_epoch = ckpt.manifest_epoch(resume_pt) if resume_pt else None
+    if not resume_epoch or resume_epoch < 2:
+        raise AssertionError(f"13c: resume point {resume_pt}")
+    relog = tmp / "elastic_relaunch.log"
+    t1 = time.perf_counter()
+    rp = crash_smoke.launch(cfgs["crash"], "cuda",
+                            ["--deterministic", "--resume", "auto"], relog)
+    if rp.wait(timeout=300) != 0:
+        raise AssertionError("13c: relaunch failed:\n"
+                             + relog.read_text()[-3000:])
+    relaunch_s = time.perf_counter() - t1
+    if _wait_all(ref, 300) != [0, 0]:
+        raise AssertionError("13c: the uninterrupted world failed:\n"
+                             + logs["ref"][0].read_text()[-3000:])
+    want = _metrics_rows(tmp / "elastic_ref" / "elastic")
+    got = _metrics_rows(folder)
+    epochs = list(range(1, ELASTIC_MNIST["epochs"] + 1))
+    if [r["epoch"] for r in got] != epochs or \
+            [r["epoch"] for r in want] != epochs:
+        raise AssertionError(f"13c: rows {[r['epoch'] for r in got]}")
+    if got[:resume_epoch] != want[:resume_epoch]:
+        raise AssertionError("13c: rows through the resume point differ")
+    ok, why = ckpt.verify_checkpoint(folder / "model_last.pt.tar")
+    if not ok:
+        raise AssertionError(f"13c: final snapshot {why}")
+    out = {"survivor_rc": rc, "exit_s_after_kill": exit_s,
+           "resume_epoch": resume_epoch, "relaunch_s": relaunch_s,
+           "seconds": time.perf_counter() - t0}
+    log(f"phase 13c: elastic drill at MNIST size (2 ranks, gloo, one card, "
+        f"deterministic): rank 1 SIGKILLed after round 2 committed; the "
+        f"survivor exited {rc} {exit_s:.2f}s later (watchdog_hard_s "
+        f"{ELASTIC_MNIST['watchdog_hard_s']}); relaunched with --resume "
+        f"auto from epoch {resume_epoch}, finished in {relaunch_s:.1f}s "
+        f"with rounds {epochs} once each; rows through epoch "
+        f"{resume_epoch} equal the uninterrupted world's; "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
+def run_phase13(tmp: Path, f32: dict) -> dict:
+    """Phase 13: the clients mesh (a), a multi-process world (b) and the
+    elastic drill (c)."""
+    t0 = time.perf_counter()
+    a = run_mesh_shards(tmp, f32)
+    b = run_world_cifar(tmp, f32)
+    c = run_elastic_drill(tmp)
+    total = time.perf_counter() - t0
+    log(f"phase 13: {total:.1f}s")
+    return {"mesh": a, "world": b, "elastic": c, "seconds": total,
+            "cifar_launches": a["rounds"]["mesh"]["launches"]
+            + sum(b["launches"])}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2381,14 +2769,16 @@ def run_phases(tmp: Path, dev, kernels: list, timed, tiny_data) -> dict:
     asyn = timed("10", run_async, tmp)
     ph11 = timed("11", run_phase11, tmp, path, asyn["11c"])
     ph12 = timed("12", run_phase12, tmp, path)
+    ph13 = timed("13", run_phase13, tmp, path)
     kernels[0]["launches"] = (path["launches"] + asyn["launches"]
-                              + ph11["launches"] + ph12["cifar_launches"])
+                              + ph11["launches"] + ph12["cifar_launches"]
+                              + ph13["cifar_launches"])
     kernels[2]["launches"] += ph12["tiny_launches"]
     return {"main_path": path, "robust_rounds": robust,
             "aggregate_ms": rules, "small_reference": small,
             "fault_round": fault, "tiny_path": tiny, "loan_path": loan,
             "bf16": bf16, "crash_resume": crash, "async": asyn,
-            "phase11": ph11, "phase12": ph12}
+            "phase11": ph11, "phase12": ph12, "phase13": ph13}
 
 
 if __name__ == "__main__":
@@ -2398,6 +2788,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["tiny-data"]:       # phase 6's data, made early
         sys.path.insert(0, str(REPO))
         sys.exit(write_tiny_data(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["mesh-shards"]:     # 13a's fresh process
+        sys.path.insert(0, str(REPO))
+        sys.exit(mesh_shards(Path(sys.argv[2])))
     if sys.argv[1:2] == ["deterministic-mnist"]:  # 10a's and 11c's process
         sys.path.insert(0, str(REPO))
         sys.exit(async_keystone(Path(sys.argv[2]))

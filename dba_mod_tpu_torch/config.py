@@ -11,9 +11,7 @@ Unlike the reference (which mutates the params dict at runtime, `helper.py:44-48
 ``Params`` is read-mostly: runtime-derived fields live in explicit attributes.
 
 The PyTorch port's own copy of ``dba_mod_tpu/config.py``: it accepts every
-key of the same schema, and a knob whose code path the port does not carry
-yet raises ``NotImplementedError`` naming the ROADMAP item that ports it
-(:func:`check_ported`) instead of silently running a different path.
+key of the same schema, with the same validation.
 """
 from __future__ import annotations
 
@@ -340,22 +338,6 @@ _DEFAULTS: Dict[str, Any] = {
 }
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to dba_mod_tpu_torch yet (ROADMAP {item}); "
-        "run it with the JAX package dba_mod_tpu")
-
-
-def check_ported(raw: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for a knob whose code path the port does
-    not carry yet. Every default passes."""
-    if int(raw["num_devices"]) not in (0, 1):
-        raise _unported(f"num_devices: {raw['num_devices']}", "A18")
-    if float(raw["heartbeat_interval_s"]) or float(
-            raw["fault_host_loss_prob"]):
-        raise _unported("heartbeat / fault_host_loss_prob", "A18")
-
-
 @dataclasses.dataclass
 class Params:
     """Typed view over a reference-schema config dict."""
@@ -496,7 +478,6 @@ class Params:
             if merged["sequential_debug"]:
                 raise ValueError(
                     "mode: async is incompatible with sequential_debug")
-        check_ported(merged)
         return cls(raw=merged)
 
     # ------------------------------------------------------------- dict access

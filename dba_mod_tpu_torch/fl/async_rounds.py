@@ -243,6 +243,12 @@ class AsyncDriver:
 
     def __init__(self, exp):
         p = exp.params
+        if exp.world_size > 1:
+            raise ValueError("mode: async is single-process only")
+        if exp.mesh is not None:
+            raise ValueError(
+                "mode: async does not support a sharded clients mesh "
+                "(set num_devices: 0); its wave training is single-device")
         self.exp = exp
         self.C = int(p["no_models"])
         self.K = int(p.get("buffer_k", 0) or 0) or self.C

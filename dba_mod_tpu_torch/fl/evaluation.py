@@ -49,13 +49,14 @@ def instrument_eval(fn, name: str, batches: int = 0):
     return telemetry.instrument(fn, name, batches=batches)
 
 
-def pick_eval_stream(device: torch.device,
-                     overlap: bool) -> Optional[torch.cuda.Stream]:
+def pick_eval_stream(device: torch.device, overlap: bool,
+                     mesh=None) -> Optional[torch.cuda.Stream]:
     """The stream the overlap_eval batteries run on: a second CUDA stream
     of the round's card, so round N's batteries run beside round N+1's
     training on the main stream. None (the current stream) without
-    overlap and on the CPU."""
-    if not overlap or device.type != "cuda":
+    overlap, on the CPU, and with a clients mesh (the batteries stay on the
+    mesh, as the JAX package's do: fl/evaluation.py::pick_eval_device)."""
+    if not overlap or device.type != "cuda" or mesh is not None:
         return None
     return torch.cuda.Stream(device)
 

@@ -44,14 +44,27 @@ serialize them). Both record byte-identical outputs: a dispatch ends by
 enqueueing its payload's copy into pinned host memory (:class:`HostCopy`),
 finalize waits for that copy only, and checkpoints write host copies
 captured at dispatch on a background writer.
-Multi-device runs are ROADMAP A18; config.check_ported rejects them.
+
+Multi-device and multi-process runs (parallel/): ``num_devices`` builds a
+clients mesh (-1 every visible card, n the first n cards; the round engine
+shards the clients axis over it, padded with inert clients under FedAvg
+only), and a ``torch.distributed`` world (torchrun's environment) makes
+every rank drive one device and train its slice of the clients. Rank 0 is
+the world's one writer: run folder, recorder, telemetry, forensics and
+checkpoints; the other ranks wait at a barrier for each committed snapshot.
+With ``heartbeat_interval_s`` set, every rank beats into a shared folder
+and checks its peers at each round boundary; a lost peer raises
+PeerLostError (the CLI exits 77), and the host-loss fault lane's victim
+SIGKILLs itself at a boundary.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import logging
+import os
 import random
+import signal
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
@@ -77,12 +90,14 @@ from dba_mod_tpu_torch.fl.rounds import (REASON_NAMES, EvalPlans,
                                          HealthSentinel, RoundEngine,
                                          with_batteries)
 from dba_mod_tpu_torch.fl.selection import select_agents
-from dba_mod_tpu_torch.fl.state import build_client_tasks
+from dba_mod_tpu_torch.fl.state import ClientTask, build_client_tasks
 from dba_mod_tpu_torch.models import ModelVars, build_model
 from dba_mod_tpu_torch.models.loan import (draw_dropout_masks,
                                            dropout_generator)
 from dba_mod_tpu_torch.ops.aggregation import foolsgold_init
 from dba_mod_tpu_torch.ops.sgd import loan_adaptive_poison_lr
+from dba_mod_tpu_torch.parallel import distributed
+from dba_mod_tpu_torch.parallel.mesh import make_mesh, pad_clients
 from dba_mod_tpu_torch.utils import run_guard, telemetry
 from dba_mod_tpu_torch.utils.device import pin_float32_math, resolve_device
 from dba_mod_tpu_torch.utils.forensics import ForensicsWriter
@@ -90,6 +105,25 @@ from dba_mod_tpu_torch.utils.html import dict_html
 from dba_mod_tpu_torch.utils.recorder import Recorder
 
 logger = logging.getLogger("dba_mod_tpu_torch")
+
+
+def _pad_tasks(tasks: ClientTask, pad: int) -> ClientTask:
+    """Append `pad` inert clients (fully masked plans → zero deltas) so the
+    stacked axis tiles the mesh. Sound only for FedAvg, whose divisor is
+    the static no_models: a zero delta would shift RFA's geometric median,
+    FoolsGold's similarity geometry and the robust rules' order
+    statistics (the caller refuses the others)."""
+    pw = ((0, pad),)
+    return ClientTask(
+        slot=np.pad(tasks.slot, pw),
+        participant_id=np.pad(tasks.participant_id, pw),
+        adv_index=np.pad(tasks.adv_index, pw, constant_values=-1),
+        adv_slot=np.pad(tasks.adv_slot, pw, constant_values=-1),
+        poisoning_per_batch=np.pad(tasks.poisoning_per_batch, pw),
+        alpha=np.pad(tasks.alpha, pw, constant_values=1.0),
+        scale=np.pad(tasks.scale, pw, constant_values=1.0),
+        lr_row=np.pad(tasks.lr_row, pw + ((0, 0),)),
+        num_epochs=np.pad(tasks.num_epochs, pw))
 
 
 def map_tensors(tree: Any, fn) -> Any:
@@ -222,10 +256,40 @@ class RoundInFlight:
 
 class Experiment:
     def __init__(self, params: cfg.Params, save_results: bool = True,
-                 device: str | torch.device = "cuda"):
-        cfg.check_ported(params.raw)
+                 device: str | torch.device = "cuda",
+                 mesh_devices: Optional[List] = None):
+        """`mesh_devices`: an explicit clients mesh for this process (it may
+        repeat a device, e.g. ``["cpu", "cpu"]``), instead of the one
+        ``num_devices`` builds."""
         self.params = params
         self.device = resolve_device(device)
+        # a multi-process world (torchrun's environment; a no-op without
+        # it): every rank drives one device. The collectives' timeout sits
+        # above the watchdog's hard limit, so the watchdog classifies a
+        # wedged collective before the backend gives up
+        distributed.initialize_distributed(
+            device_type=self.device.type,
+            timeout_s=distributed.process_group_timeout_s(
+                float(params.get("watchdog_hard_s", 0.0))))
+        self.rank, self.world_size = (distributed.rank(),
+                                      distributed.world_size())
+        if self.world_size > 1:
+            self.device = resolve_device(
+                distributed.rank_device(self.device.type))
+        self.mesh = make_mesh(int(params.get("num_devices", 0)),
+                              devices=mesh_devices, device=self.device,
+                              rank=self.rank, world_size=self.world_size)
+        if bool(params.get("sequential_debug", False)) and (
+                self.mesh is not None):
+            if self.world_size > 1:
+                raise ValueError("sequential_debug runs in one process; "
+                                 "it cannot train a multi-process world")
+            # width-1 client slices cannot tile a sharded clients axis
+            logger.warning("sequential_debug forces single-device "
+                           "execution; ignoring num_devices")
+            self.mesh = None
+        if self.mesh is not None:
+            self.device = self.mesh.first
         self.model_def = build_model(params)
         if self.model_def.dtype == torch.float32:
             # float32 runs pin cuDNN and cuBLAS to full float32, as the JAX
@@ -241,6 +305,16 @@ class Experiment:
         # re-enters the killed run's folder and continues its streams
         self._auto_resume_path: Optional[Path] = None
         resumed_folder: Optional[Path] = None
+        # one writer per world: every rank agrees on the run folder, rank 0
+        # alone writes it (metadata, logs, recorder streams, telemetry,
+        # forensics, checkpoints)
+        self.is_writer = self.rank == 0
+        if save_results and self.world_size > 1 and not params.run_name:
+            raise ValueError(
+                "multi-process runs that save results require run_name: "
+                "every rank — and every elastic relaunch of the survivors "
+                "— must agree on ONE run folder, which per-process "
+                "timestamped folders cannot guarantee")
         if params.resume_mode == "auto":
             hit = ckpt.find_auto_resume(Path(str(params["run_dir"])),
                                         params.type, params.run_name)
@@ -250,16 +324,21 @@ class Experiment:
             self.folder: Optional[Path] = None
         elif resumed_folder is not None:
             self.folder = resumed_folder
-            ckpt.sweep_stale(self.folder)
-            params.write_yaml(self.folder)
-        else:
+            if self.is_writer:   # the folder's owner only
+                ckpt.sweep_stale(self.folder)
+                params.write_yaml(self.folder)
+        elif self.is_writer:
             self.folder = params.make_run_folder()
+        else:
+            self.folder = Path(str(params["run_dir"])) / params.run_name
+            self.folder.mkdir(parents=True, exist_ok=True)
+        wfolder = self.folder if self.is_writer else None
         # one run-folder log.txt handler that follows the active experiment
-        telemetry.setup_logging(self.folder)
-        if self.folder is not None:
-            (self.folder / "params.html").write_text(
+        telemetry.setup_logging(wfolder)
+        if wfolder is not None:
+            (wfolder / "params.html").write_text(
                 dict_html(params.raw, params.current_time))
-        self.recorder = Recorder(self.folder,
+        self.recorder = Recorder(wfolder,
                                  tensorboard=bool(params.get("tensorboard")))
         tb_sink = (self.recorder._scalar if self.recorder._tb is not None
                    else None)
@@ -269,14 +348,15 @@ class Experiment:
         # process-wide current one, so the spans of shared code
         # (checkpoint.py, the batteries) resolve to it
         tdir = str(params.get("telemetry_dir", "") or "")
+        tfolder = Path(tdir) if tdir else self.folder
         self.telemetry = telemetry.configure(
             enabled=bool(params.get("telemetry", False)),
-            folder=Path(tdir) if tdir else self.folder, tb_sink=tb_sink,
+            folder=tfolder if self.is_writer else None, tb_sink=tb_sink,
             device=self.device)
         # defense forensics: per-client rows from the round's ForensicStats
         # slot; no writer, no files and no device work when off
         self.forensics_writer: Optional[ForensicsWriter] = (
-            ForensicsWriter(self.folder, tb_sink=tb_sink)
+            ForensicsWriter(wfolder, tb_sink=tb_sink)
             if bool(params.get("forensics", False)) else None)
         seed = int(params.get("random_seed", 1))
         self.select_rng = random.Random(seed)
@@ -321,15 +401,41 @@ class Experiment:
         if resume_path is not None:
             self._resume_from(resume_path)
 
+        # elastic peer-health layer (parallel/distributed.py::PeerHealth):
+        # heartbeats, the round-boundary check and the watchdog's peer-lost
+        # verdict, in a multi-process run with heartbeat_interval_s > 0
+        # only (otherwise no thread, no files, no per-round work)
+        self.peers: Optional[distributed.PeerHealth] = None
+        self.heartbeat_barrier_s = float(
+            params.get("heartbeat_barrier_s", 0.0))
+        hb = float(params.get("heartbeat_interval_s", 0.0))
+        if hb > 0 and self.world_size > 1:
+            # default under THIS run's folder: twin worlds sharing a run_dir
+            # must not read each other's beats
+            hb_dir = (str(params.get("heartbeat_dir", "") or "")
+                      or str((self.folder if self.folder is not None
+                              else Path(str(params["run_dir"])))
+                             / "_peers"))
+            self.peers = distributed.PeerHealth(
+                hb_dir, self.rank, self.world_size, interval_s=hb,
+                timeout_s=float(params.get("heartbeat_timeout_s", 0.0)))
+        self.telemetry.gauge("mesh/world_size").set(self.world_size)
+
         self.engine = RoundEngine(params, self.model_def, self.device_data,
                                   self.eval_plans,
-                                  num_segments=self.interval)
+                                  num_segments=self.interval, mesh=self.mesh,
+                                  shard_data=self._shard_data())
+        self.engine.watch = self.guard.watch
         # sequential_debug trains through width-1 calls that the fault
         # layer's injection and screen do not cover: refuse the combination
         # rather than silently not injecting (as the JAX package does)
         if self.engine.robust and self.engine.sequential:
             raise ValueError("fault_injection/screen_updates are not "
                              "supported with sequential_debug")
+        if self.engine.fault_cfg.stale_enabled and self.world_size > 1:
+            raise ValueError("fault_stale_prob > 0 is single-process only "
+                             "(the replayed-delta carry cannot be placed "
+                             "across processes)")
         self.max_round_retries = int(params.get("max_round_retries", 2))
         self.retry_backoff_s = float(params.get("retry_backoff_s", 0.0))
         # post-merge model-health sentinel (README "Self-healing
@@ -369,7 +475,8 @@ class Experiment:
         # card (none on the CPU), beside round N+1's train on the main one
         # (_dispatch_overlap, the pipelined loop in _run_rounds)
         self._overlap = bool(params.get("overlap_eval", False))
-        self._eval_stream = pick_eval_stream(self.device, self._overlap)
+        self._eval_stream = pick_eval_stream(self.device, self._overlap,
+                                             self.mesh)
         self._overlap_rounds = 0
         self._overlap_hidden_s = 0.0  # cumulative eval+fetch seconds hidden
         self._overlap_wait_s = 0.0    # cumulative finalize blocking seconds
@@ -412,7 +519,8 @@ class Experiment:
             self._resume_aux = None
         logger.info("resumed %s: lr=%s start_epoch=%d aux=%s", resume_path,
                     saved_lr, self.start_epoch, self._resume_aux is not None)
-        if params.resume_mode == "auto" and self.folder is not None:
+        if params.resume_mode == "auto" and self.folder is not None \
+                and self.is_writer:
             # continue the killed run's streams through the resumed round's
             # FINAL epoch and drop the rest: a kill can land after round N
             # recorded but before its checkpoint verified, and the replayed
@@ -474,6 +582,20 @@ class Experiment:
                              int(pos), int(has_gauss), float(cached)),
                 "noise_gen": self.noise_gen.get_state().cpu(),
                 "noise_gen_device": self.noise_gen.device.type}
+
+    def _shard_data(self) -> Dict[torch.device, Any]:
+        """The device data of each mesh device other than the first (a
+        mesh that repeats one device needs none)."""
+        if self.mesh is None:
+            return {}
+        out = {}
+        for dev in self.mesh.distinct_devices()[1:]:
+            out[dev] = (make_image_device_data(self.image_data, self.params,
+                                               dev)
+                        if self.params.is_image else
+                        make_loan_device_data(self.loan_data, self.params,
+                                              dev))
+        return out
 
     # ------------------------------------------------------------------ data
     def _load_data_and_partition(self, seed: int):
@@ -666,6 +788,20 @@ class Experiment:
             tasks_list.append(tasks_s)
             idx_list.append(plan.idx)
             mask_list.append(plan.mask)
+        c_pad = pad_clients(len(agent_names), self.mesh)
+        if c_pad != len(agent_names):
+            if params.aggregation != cfg.AGGR_MEAN:
+                raise ValueError(
+                    f"no_models={len(agent_names)} does not tile the "
+                    f"{self.mesh.size}-shard mesh; pick a multiple "
+                    "(inert-client padding is only sound for FedAvg, whose "
+                    "divisor is the static no_models)")
+            pad = c_pad - len(agent_names)
+            tasks_list = [_pad_tasks(t, pad) for t in tasks_list]
+            pw = ((0, pad),) + ((0, 0),) * 3
+            idx_list = [np.pad(i, pw) for i in idx_list]
+            mask_list = [np.pad(m, pw) for m in mask_list]
+            num_samples = np.pad(num_samples, (0, pad))
         idx_seq, mask_seq = np.stack(idx_list), np.stack(mask_list)
         return RoundPlan(seg_epochs, agent_names, adv_names, tasks_list,
                          idx_seq, mask_seq, mask_list, num_samples,
@@ -1065,7 +1201,7 @@ class Experiment:
             t.counter("clients_dropped").inc(robust["n_dropped"])
         if robust.get("degraded"):
             t.counter("degraded_rounds").inc()
-        for n in np.asarray(delta_norms).reshape(-1):
+        for n in np.asarray(delta_norms).reshape(-1)[:len(fl.agent_names)]:
             t.histogram("delta_norm").observe(float(n))
         t.histogram("round_seconds").observe(times["round_time"])
         t.flush_round(fl.epoch)
@@ -1078,23 +1214,24 @@ class Experiment:
         defense weights, the local poison battery)."""
         params = self.params
         names = list(fl.agent_names)
+        C = len(names)    # the real clients; padded mesh lanes are cut off
         adv = set(params.adversary_list)
         poison_acc = None
         if self.is_poison_run and locals_ is not None:
-            poison_acc = np.asarray(locals_.poison_post.acc)
+            poison_acc = np.asarray(locals_.poison_post.acc)[:C]
         robust_agg = params.aggregation != cfg.AGGR_MEAN
         self.forensics_writer.add_round(
             epoch=fl.epoch, aggregation=params.aggregation, names=names,
-            participant_ids=np.asarray(fl.tasks_list[0].participant_id),
+            participant_ids=np.asarray(fl.tasks_list[0].participant_id)[:C],
             adversary_flags=[int(n in adv) for n in names],
-            delta_norms=np.asarray(delta_norms),
-            recv_norms=np.asarray(fstats.recv_norms),
-            cosine=np.asarray(fstats.cosine_to_agg),
-            verdict=np.asarray(fstats.verdict),
-            reason_codes=np.asarray(fstats.reason),
+            delta_norms=np.asarray(delta_norms)[:C],
+            recv_norms=np.asarray(fstats.recv_norms)[:C],
+            cosine=np.asarray(fstats.cosine_to_agg)[:C],
+            verdict=np.asarray(fstats.verdict)[:C],
+            reason_codes=np.asarray(fstats.reason)[:C],
             reason_names=REASON_NAMES,
-            weights=np.asarray(wv) if robust_agg else None,
-            alpha=np.asarray(alpha) if robust_agg else None,
+            weights=np.asarray(wv)[:C] if robust_agg else None,
+            alpha=np.asarray(alpha)[:C] if robust_agg else None,
             poison_acc=poison_acc,
             oracle_calls=int(fstats.oracle_calls),
             n_retries=int(robust.get("n_retries", 0)),
@@ -1311,9 +1448,18 @@ class Experiment:
         already belong to the next round); `async_save` queues the writes
         on the checkpoint writer thread (run() waits for it before it
         returns). `extra_aux` merges more keys into the sidecar: the async
-        engine's streaming state (``async_state``)."""
+        engine's streaming state (``async_state``). In a multi-process
+        world rank 0 alone writes, synchronously, and every rank waits at a
+        barrier until the snapshot is committed."""
         params = self.params
         if not params["save_model"] or self.folder is None:
+            return
+        if self.world_size > 1:
+            if self.is_writer:
+                with self.telemetry.span("round/checkpoint"):
+                    self._save(epoch, fl, False, extra_aux)
+            with self.guard.watch("checkpoint/commit_barrier"):
+                distributed.barrier()
             return
         with self.telemetry.span("round/checkpoint"):
             self._save(epoch, fl, async_save, extra_aux)
@@ -1385,8 +1531,28 @@ class Experiment:
         writes the telemetry trace and summary."""
         self.interrupted = False
         with self.guard:
+            if self.peers is not None:
+                # heartbeats and the watchdog's peer-lost verdict live as
+                # long as the round loop
+                self.peers.start()
+                self.guard.attach_peer_health(self.peers)
             try:
                 return self._run_rounds(epochs)
+            except distributed.PeerLostError:
+                telemetry.count("run/peer_lost")
+                raise
+            except Exception as exc:
+                # a collective that failed because its peer vanished
+                # surfaces as PeerLost (exit 77, relaunch shrunk), not as a
+                # crash: poll the heartbeats long enough for a real loss to
+                # go stale
+                lost = self._classify_peer_failure()
+                if lost:
+                    telemetry.count("run/peer_lost")
+                    raise distributed.PeerLostError(
+                        lost, detail=f"collective failure: "
+                        f"{type(exc).__name__}") from exc
+                raise
             finally:
                 try:
                     if self._eval_worker is not None:
@@ -1395,7 +1561,62 @@ class Experiment:
                     with self.guard.watch("checkpoint/wait_async"):
                         ckpt.wait_for_async_saves()
                 finally:
+                    if self.peers is not None:
+                        self.guard.attach_peer_health(None)
+                        self.peers.stop()
                     self._finish_telemetry()
+
+    def _classify_peer_failure(self) -> List[int]:
+        """An exception escaped the round loop: a slow peer or a gone one?
+        Poll the heartbeats for up to one timeout window — a dead rank's
+        file goes stale within it, a live world's does not. Empty: not a
+        peer loss (the caller re-raises the original)."""
+        if self.peers is None:
+            return []
+        deadline = (time.monotonic() + self.peers.timeout_s
+                    + self.peers.interval_s)
+        while True:
+            lost = self.peers.lost_peers()
+            if lost or time.monotonic() >= deadline:
+                return lost
+            time.sleep(min(max(self.peers.interval_s, 0.05), 0.25))
+
+    def _round_boundary(self, epoch: int) -> None:
+        """Elastic round-boundary work, in order: the host-loss fault lane
+        may SIGKILL this process (a multi-process run's victim dies HERE,
+        so committed rounds stay committed); then a beat and the peers'
+        staleness check, or the bounded barrier — a dead peer surfaces as
+        PeerLostError now, outside any collective. A no-op when both are
+        off."""
+        self.guard.watchdog.epoch = epoch
+        self._maybe_kill_self(epoch)
+        if self.peers is None:
+            return
+        if self.heartbeat_barrier_s > 0:
+            self.peers.barrier(epoch, self.heartbeat_barrier_s)
+        else:
+            self.peers.check(epoch)
+
+    def _maybe_kill_self(self, epoch: int) -> None:
+        """The host-loss lane in a multi-process run: every rank derives
+        the epoch's victim from (fault_seed, epoch); the victim SIGKILLs
+        itself — no handlers, no cleanup, the preemption the elastic layer
+        must survive. A single process enacts the lane in the round's fault
+        plan instead."""
+        fcfg = self.engine.fault_cfg
+        if (not fcfg.host_loss_enabled or fcfg.host_loss_in_program
+                or self.world_size == 1):
+            return
+        victim = flt.host_loss_victim(
+            fcfg, flt.fault_generator(fcfg.seed, epoch))
+        if victim != self.rank:
+            return
+        logger.critical(
+            "fault injection: host-loss lane kills rank %d at the epoch-%d "
+            "boundary (SIGKILL — survivors must detect, exit %d, and "
+            "relaunch shrunk)", victim, epoch, run_guard.EXIT_PEER_LOST)
+        logging.shutdown()
+        os.kill(os.getpid(), signal.SIGKILL)
 
     def _finish_telemetry(self) -> None:
         t = self.telemetry
@@ -1463,7 +1684,7 @@ class Experiment:
                 # saved — nothing in flight to lose
                 self._note_interrupted(epoch)
                 break
-            self.guard.watchdog.epoch = epoch
+            self._round_boundary(epoch)
             if profile_dir and epoch == self.start_epoch + self.interval:
                 # trace the first round after warm-up
                 with self._profile(profile_dir, epoch):
@@ -1500,7 +1721,7 @@ class Experiment:
                 if self.guard.stop_requested:
                     self._note_interrupted(epoch)
                     break
-                self.guard.watchdog.epoch = epoch
+                self._round_boundary(epoch)
                 fl = self.dispatch_round(epoch)
                 if pending is not None:
                     last = finalize_and_log(pending)

@@ -24,6 +24,18 @@ fl/grouped_client.py's grouped layout (BasicBlock ResNets only). With
 width-1 ``train_fn`` calls (:meth:`RoundEngine.train_sequential`) and
 stitches the results back together.
 
+With a clients mesh (parallel/mesh.py) the round is sharded: each shard
+trains its contiguous slice of the clients on its own device with the same
+vmapped segment step (one fused update launch per shard per step; every
+shard's work is enqueued before any result is read), runs its clients'
+local battery there, and the per-client stacks (deltas, FoolsGold
+accumulators, metrics, local-battery rows) are gathered onto the mesh's
+first device — and, in a multi-process world, all-gathered across ranks
+(parallel/distributed.py::gather_clients). The server rule then runs
+unchanged on the full stack (the reduction order of one device, so the
+rules have no sharded twin), and the global battery runs on the replicated
+global model.
+
 `round_fn` runs them all and returns the payload in the order the JAX
 package's ``Experiment.finalize_round`` unpacks it, with RobustStats (or
 None) in slot 9 and ForensicStats (``forensics: true``; None otherwise) in
@@ -38,12 +50,15 @@ with one scalar host read per check.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import types
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from dba_mod_tpu_torch import config as cfg
 from dba_mod_tpu_torch.fl import faults as flt
@@ -96,6 +111,10 @@ class TrainResult(NamedTuple):
     batch_dist: torch.Tensor      # [I, C, E*S]
     seg_deltas: List[ModelVars]   # cumulative deltas at each INTERMEDIATE
                                   # segment end (empty when I == 1)
+    # a sharded round's local battery, run by each shard on its clients:
+    # (LocalEvals or None, [LocalEvals] of the intermediate segments or
+    # None); None on the unsharded path, whose battery runs after the core
+    local_rows: Optional[Tuple[Any, Any]] = None
 
 
 class AggregateResult(NamedTuple):
@@ -437,13 +456,25 @@ class RoundEngine:
     """Holds the round + eval computations for one experiment config."""
 
     def __init__(self, params: cfg.Params, model_def: ModelDef,
-                 data: DeviceData, plans: EvalPlans, num_segments: int = 1):
+                 data: DeviceData, plans: EvalPlans, num_segments: int = 1,
+                 mesh=None, shard_data: Optional[Dict] = None):
+        """`mesh`: a parallel.mesh.ClientsMesh to shard the clients axis
+        over (None: unsharded); `shard_data`: {device: DeviceData} for the
+        mesh's devices other than `data`'s."""
         with telemetry.span("engine/build"):
-            self._build(params, model_def, data, plans, num_segments)
+            self._build(params, model_def, data, plans, num_segments, mesh,
+                        shard_data or {})
 
     def _build(self, params: cfg.Params, model_def: ModelDef,
-               data: DeviceData, plans: EvalPlans, num_segments: int):
+               data: DeviceData, plans: EvalPlans, num_segments: int,
+               mesh, shard_data: Dict):
         self.params = params
+        self.mesh = mesh
+        # a watchdog zone around host-blocking collectives (the
+        # experiment's guard.watch; a null context when unset)
+        self.watch = lambda label: contextlib.nullcontext()
+        self._shard_data = shard_data
+        self._kits: Dict[torch.device, Any] = {}
         self.hyper = hyper = RoundHyper.from_params(params)
         self.model_def = model_def
         self.data = data
@@ -451,10 +482,11 @@ class RoundEngine:
         self.num_segments = num_segments
         self.device = data.device
         self.fg_enabled = hyper.aggregation == cfg.AGGR_FOOLSGOLD
-        # the grouped client layout (models/grouped.py): default off; the
-        # port has no sharded clients axis, so the model decides
+        # the grouped client layout (models/grouped.py): default off; it
+        # folds the clients axis into the features, so it cannot be sharded
         self.use_grouped = bool(params.get("grouped_clients", False))
-        if self.use_grouped and not supports_grouped(model_def):
+        if self.use_grouped and not (supports_grouped(model_def)
+                                     and mesh is None):
             raise ValueError(
                 "grouped_clients=true requires a BasicBlock-ResNet "
                 "model and an unsharded clients axis")
@@ -511,6 +543,26 @@ class RoundEngine:
                                                "eval/global", global_b)
         self._probe = instrument_eval(self._backdoor_acc,
                                       "eval/backdoor_probe", poison)
+        self._kits[self.device] = types.SimpleNamespace(
+            step=self.client_step, plans=plans, clean=self.eval_clean_s,
+            poison=self.eval_poison_s, agent=self.eval_agent_s)
+
+    def _kit(self, dev: torch.device):
+        """A shard device's client step, stacked eval functions and eval
+        plans (built at the device's first use; the engine's own device's
+        are the engine's)."""
+        if dev not in self._kits:
+            data = self._shard_data[dev]
+            md, pl = self.model_def, self.plans
+            self._kits[dev] = types.SimpleNamespace(
+                step=make_client_step(md, data, self.hyper, self.fg_enabled),
+                plans=EvalPlans(*(getattr(pl, f.name).to(dev) for f in
+                                  dataclasses.fields(EvalPlans))),
+                clean=make_stacked_eval_fn(md, data, poison=False),
+                poison=make_stacked_eval_fn(md, data, poison=True),
+                agent=make_stacked_eval_fn(md, data, poison=True,
+                                           per_client_trigger=True))
+        return self._kits[dev]
 
     # ------------------------------------------------------------- train
     def train_fn(self, global_vars: ModelVars, tasks_seq: List[ClientTask],
@@ -519,12 +571,28 @@ class RoundEngine:
         """tasks_seq: one host ClientTask per segment; idx/mask [I, C, E, S,
         B] numpy plans; dropout_seq: a dropout model's keep masks, one tuple
         of [C, E, S, B, width] bool tensors per segment (moved to the
-        device once per segment)."""
-        dev = self.device
-        n_seg, C = idx_seq.shape[0], idx_seq.shape[1]
+        device once per segment). With a mesh the clients are sharded
+        (:meth:`train_sharded`)."""
         if self.model_def.has_dropout and dropout_seq is None:
             raise ValueError(f"{self.model_def.name}: train_fn needs the "
                              f"round's dropout masks")
+        if self.mesh is not None:
+            return self.train_sharded(global_vars, tasks_seq, idx_seq,
+                                      mask_seq, dropout_seq)
+        dev = self.device
+        return self._train_stack(
+            self.client_step, dev, global_vars, tasks_seq,
+            [to_device(i, dev) for i in idx_seq],
+            [to_device(m, dev) for m in mask_seq],
+            [m.any(axis=(0, 3)) for m in mask_seq], dropout_seq)
+
+    def _train_stack(self, step, dev: torch.device, global_vars: ModelVars,
+                     tasks_seq: List[ClientTask], idx_seq, mask_seq,
+                     active_seq, dropout_seq) -> TrainResult:
+        """The segment loop over one stack of clients on `dev`: idx/mask
+        per segment on the device, `active_seq` per segment [E, S] host
+        bool."""
+        n_seg, C = len(idx_seq), int(idx_seq[0].shape[0])
         start = ModelVars(_stack(global_vars.params, C),
                           _stack(global_vars.batch_stats, C))
         benign_mom = {k: torch.zeros_like(v) for k, v in start.params.items()}
@@ -533,13 +601,10 @@ class RoundEngine:
         seg_metrics, seg_bloss, seg_bdist, seg_deltas = [], [], [], []
         for s in range(n_seg):
             task = tasks_seq[s].to_device(dev)
-            idx = to_device(idx_seq[s], dev)
-            mask = to_device(mask_seq[s], dev)
-            active = mask_seq[s].any(axis=(0, 3))         # [E, S] host-side
             drop = (tuple(to_device(d, dev) for d in dropout_seq[s])
                     if self.model_def.has_dropout else ())
-            res = self.client_step(start, benign_mom, task, idx, mask,
-                                   active, drop)
+            res = step(start, benign_mom, task, idx_seq[s], mask_seq[s],
+                       active_seq[s], drop)
             start = res.end_vars
             benign_mom = res.benign_mom
             fg_total = {k: v + res.fg_grads[k] for k, v in fg_total.items()}
@@ -557,6 +622,54 @@ class RoundEngine:
         return TrainResult(deltas, fg_total, fg_feature, metrics, delta_norms,
                            torch.stack(seg_bloss),
                            torch.stack(seg_bdist), seg_deltas)
+
+    def train_sharded(self, global_vars: ModelVars,
+                      tasks_seq: List[ClientTask], idx_seq: np.ndarray,
+                      mask_seq: np.ndarray,
+                      dropout_seq: Optional[List[tuple]] = None
+                      ) -> TrainResult:
+        """The clients sharded over the mesh: each shard trains its slice
+        on its device and runs its clients' local battery there (all of it
+        enqueued before anything is read), then the per-client stacks are
+        gathered onto the mesh's first device and, across ranks, through
+        one all-gather. Returns the full-stack TrainResult with the local
+        battery's rows in ``local_rows``."""
+        from dba_mod_tpu_torch.parallel.mesh import (replicate_for_mesh,
+                                                     shard_round_inputs)
+        mesh = self.mesh
+        first = mesh.first
+        reps = replicate_for_mesh(mesh, global_vars)
+        outs = []
+        for sh in shard_round_inputs(mesh, tasks_seq, idx_seq, mask_seq):
+            kit = self._kit(sh.device)
+            gv = reps[sh.device]
+            drop = (None if dropout_seq is None else
+                    [tuple(d[sh.lo:sh.hi] for d in seg)
+                     for seg in dropout_seq])
+            res = self._train_stack(kit.step, sh.device, gv, sh.tasks_seq,
+                                    sh.idx_seq, sh.mask_seq, sh.active_seq,
+                                    drop)
+            rows = None
+            if self.do_local_eval:
+                prev = (res.seg_deltas[-1] if res.seg_deltas else
+                        _map2(lambda d, _: torch.zeros_like(d), res.deltas,
+                              res.deltas))
+                task = sh.tasks_seq[-1].to_device(sh.device)
+                loc = self._local_evals(gv, res.deltas, task, prev, kit)
+                seg = (self._seg_local_evals(gv, res.seg_deltas,
+                                             sh.tasks_seq, kit)
+                       if self.num_segments > 1 else None)
+                rows = (loc, seg)
+            outs.append(res._replace(local_rows=rows))
+        res = outs[0] if len(outs) == 1 else _cat_shards(outs, first)
+        if mesh.world_size > 1:
+            from dba_mod_tpu_torch.parallel.distributed import gather_clients
+            with self.watch("round/all_gather"), \
+                    telemetry.span("round/all_gather"):
+                a, b = gather_clients(
+                    [(_axis0_part(res), 0), (_axis1_part(res), 1)], first)
+            res = _join_parts(a, b)
+        return res
 
     def train_sequential(self, global_vars: ModelVars,
                          tasks_seq: List[ClientTask], idx_seq: np.ndarray,
@@ -623,23 +736,29 @@ class RoundEngine:
         return EvalResult(z, z, z, z)
 
     def _stacked_battery(self, unscaled: ModelVars, scaled: ModelVars,
-                         adv_slots: torch.Tensor) -> LocalEvals:
+                         adv_slots: torch.Tensor, kit=None) -> LocalEvals:
         """The per-client battery: clean on the pre-scaling model
         (image_train.py:150-155, :268-271), poison pre on it (:157-164),
-        poison post + per-agent trigger on the submitted one (:275-295)."""
-        pl = self.plans
-        minus1 = self._const(-1)
-        clean = self.eval_clean_s(unscaled, pl.clean_idx, pl.clean_slots,
-                                  pl.clean_mask, minus1)
+        poison post + per-agent trigger on the submitted one (:275-295).
+        `kit`: a shard device's eval functions and plans (the engine's
+        own when None)."""
+        kit = kit or self._kits[self.device]
+        pl = kit.plans
+        dev = adv_slots.device
+        minus1 = torch.full((), -1, dtype=torch.int64, device=dev)
+        clean = kit.clean(unscaled, pl.clean_idx, pl.clean_slots,
+                          pl.clean_mask, minus1)
         if self.is_poison_run:
-            pre = self.eval_poison_s(unscaled, pl.poison_idx, pl.poison_slots,
-                                     pl.poison_mask, minus1)
-            post = self.eval_poison_s(scaled, pl.poison_idx, pl.poison_slots,
-                                      pl.poison_mask, minus1)
-            agent = self.eval_agent_s(scaled, pl.poison_idx, pl.poison_slots,
-                                      pl.poison_mask, adv_slots)
+            pre = kit.poison(unscaled, pl.poison_idx, pl.poison_slots,
+                             pl.poison_mask, minus1)
+            post = kit.poison(scaled, pl.poison_idx, pl.poison_slots,
+                              pl.poison_mask, minus1)
+            agent = kit.agent(scaled, pl.poison_idx, pl.poison_slots,
+                              pl.poison_mask, adv_slots)
         else:
-            pre = post = agent = self._zero_evals(adv_slots.shape[0])
+            z = torch.zeros((adv_slots.shape[0],), dtype=torch.float32,
+                            device=dev)
+            pre = post = agent = EvalResult(z, z, z, z)
         return LocalEvals(clean, pre, post, agent)
 
     def local_evals(self, global_vars: ModelVars, deltas: ModelVars,
@@ -650,7 +769,7 @@ class RoundEngine:
         return self._local_battery(global_vars, deltas, task, prev_deltas)
 
     def _local_evals(self, global_vars: ModelVars, deltas: ModelVars,
-                     task: ClientTask, prev_deltas: ModelVars
+                     task: ClientTask, prev_deltas: ModelVars, kit=None
                      ) -> LocalEvals:
         def unscale(g, p, d):
             return g + p + (d - p) / _bc(task.scale.to(torch.float32), d)
@@ -660,7 +779,7 @@ class RoundEngine:
             {k: unscale(g, prev_deltas.batch_stats[k], deltas.batch_stats[k])
              for k, g in global_vars.batch_stats.items()})
         scaled = _map2(lambda d, g: g + d, deltas, global_vars)
-        return self._stacked_battery(unscaled, scaled, task.adv_slot)
+        return self._stacked_battery(unscaled, scaled, task.adv_slot, kit)
 
     def seg_local_evals(self, global_vars: ModelVars,
                         seg_deltas: List[ModelVars],
@@ -671,13 +790,16 @@ class RoundEngine:
 
     def _seg_local_evals(self, global_vars: ModelVars,
                          seg_deltas: List[ModelVars],
-                         tasks_seq: List[ClientTask]) -> List[LocalEvals]:
+                         tasks_seq: List[ClientTask], kit=None
+                         ) -> List[LocalEvals]:
         outs, prev = [], None
         for s, cur in enumerate(seg_deltas):
             if prev is None:
                 prev = _map2(lambda c, _: torch.zeros_like(c), cur, cur)
-            task = tasks_seq[s].to_device(self.device)
-            outs.append(self._local_evals(global_vars, cur, task, prev))
+            dev = next(iter(cur.params.values())).device
+            task = tasks_seq[s].to_device(dev)
+            outs.append(self._local_evals(global_vars, cur, task, prev,
+                                          kit))
             prev = cur
         return outs
 
@@ -742,8 +864,12 @@ class RoundEngine:
         what each client TRAINED (the pre-fault deltas; faults model the
         uplink) against the pre-round model, the per-epoch batteries of an
         aggr_epoch_interval > 1 round, and the global battery of the
-        committed model. Returns (locals, seg_locals, globals)."""
-        deltas, prev, seg_deltas = eval_in
+        committed model. Returns (locals, seg_locals, globals). A sharded
+        round's shards ran their local batteries already (``rows``)."""
+        deltas, prev, seg_deltas, rows = eval_in
+        if rows is not None:
+            locals_, seg_l = rows
+            return locals_, seg_l, self.global_evals(new_vars)
         task_last = tasks_seq[-1].to_device(self.device)
         locals_ = (self.local_evals(global_vars, deltas, task_last, prev)
                    if self.do_local_eval else None)
@@ -799,7 +925,7 @@ class RoundEngine:
                    res.alpha, track_pair, res.is_updated, None, stats,
                    fstats)
         return (res.new_vars, res.new_fg_state, payload, deltas_out,
-                (train.deltas, prev, train.seg_deltas))
+                (train.deltas, prev, train.seg_deltas, train.local_rows))
 
     def _aggregate_round(self, global_vars, tasks_seq, idx_seq, mask_seq,
                          gen, train: TrainResult, num_samples, fg_state,
@@ -899,6 +1025,36 @@ class RoundEngine:
                     torch.zeros((C,), dtype=torch.int32, device=dev),
                     res.num_oracle_calls)
         return res, stats, fstats, deltas_out
+
+
+def _axis0_part(r: TrainResult):
+    """The fields of a TrainResult whose clients axis is 0."""
+    return (r.deltas, r.fg_grads, r.fg_feature, r.delta_norms, r.seg_deltas,
+            r.local_rows)
+
+
+def _axis1_part(r: TrainResult):
+    """The fields of a TrainResult whose clients axis is 1 ([I, C, ...])."""
+    return (r.metrics, r.batch_loss, r.batch_dist)
+
+
+def _join_parts(a, b) -> TrainResult:
+    deltas, fg_grads, fg_feature, norms, seg_deltas, rows = a
+    metrics, bloss, bdist = b
+    return TrainResult(deltas, fg_grads, fg_feature, metrics, norms, bloss,
+                       bdist, list(seg_deltas), rows)
+
+
+def _cat_shards(outs: List[TrainResult], dev: torch.device) -> TrainResult:
+    """The shards' TrainResults as one stack on `dev`, in shard order."""
+    def cat(parts, axis):
+        flat = [pytree.tree_flatten(p) for p in parts]
+        leaves = [torch.cat([f[0][i].to(dev) for f in flat], axis)
+                  if isinstance(flat[0][0][i], torch.Tensor)
+                  else flat[0][0][i] for i in range(len(flat[0][0]))]
+        return pytree.tree_unflatten(leaves, flat[0][1])
+    return _join_parts(cat([_axis0_part(o) for o in outs], 0),
+                       cat([_axis1_part(o) for o in outs], 1))
 
 
 def with_batteries(payload, locals_, seg_locals, globals_):

@@ -15,9 +15,10 @@ On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/fused_update.cu`` (built at first use, see utils/cuda_build.py); it
 updates w, m, fg and bn_old IN PLACE, where the JAX op is functional — the
 port saves writing a second copy of the client state every step. On a CPU
-tensor the wrapper computes :func:`fused_step_update_reference`, the plain
-PyTorch version, and copies its result into the same tensors. There is no
-fallback from the kernel to the plain version.
+tensor the wrapper runs the plain PyTorch version in place
+(:func:`plain_update_`; :func:`fused_step_update_reference` is the same
+function on copies). There is no fallback from the kernel to the plain
+version.
 """
 from __future__ import annotations
 
@@ -39,33 +40,55 @@ _Table = None
 
 
 # ---------------------------------------------------------------- plain version
+def plain_update_(lr: torch.Tensor, valid: torch.Tensor, params: Tree,
+                  grads: Tree, mom: Tree, fg: Tree, bn_new: Tree,
+                  bn_old: Tree, *, momentum: float,
+                  weight_decay: float) -> None:
+    """The JAX ``reference`` (dba_mod_tpu/ops/fused_update.py:166-179) in
+    torch ops, in place: the same order of operations, each product its
+    own op, so every valid client's row is what the functional form
+    computes. The rows of clients that are not valid are saved before
+    and written back after (nothing is done when none is valid). Updates
+    params, mom, fg and bn_old; `fg` empty = FoolsGold off."""
+    keep = valid != 0
+    if not bool(keep.any()):
+        return
+    drop = None if bool(keep.all()) else ~keep
+
+    def in_place(tensors, update):
+        saved = ([t[drop].clone() for t in tensors] if drop is not None
+                 else [])
+        update()
+        for t, old in zip(tensors, saved):
+            t[drop] = old
+
+    for k, w in params.items():
+        g, m = grads[k], mom[k]
+        lr_c = lr.reshape((lr.shape[0],) + (1,) * (w.dim() - 1))
+
+        def step(w=w, g=g, m=m, lr_c=lr_c):
+            g2 = g + weight_decay * w
+            m.mul_(momentum).add_(g2)
+            w.sub_(lr_c * m)
+        in_place((w, m), step)
+    for k, f in fg.items():
+        in_place((f,), lambda f=f, g=grads[k]: f.add_(g))
+    for k, b in bn_old.items():
+        in_place((b,), lambda b=b, n=bn_new[k]: b.copy_(n))
+
+
 def fused_step_update_reference(lr: torch.Tensor, valid: torch.Tensor,
                                 params: Tree, grads: Tree, mom: Tree,
                                 fg: Tree, bn_new: Tree, bn_old: Tree, *,
                                 momentum: float, weight_decay: float
                                 ) -> Tuple[Dict, Dict, Dict, Dict]:
-    """The JAX ``reference`` (dba_mod_tpu/ops/fused_update.py:166-179) in
-    torch ops, same order of operations, each product its own op. Returns
-    (new_params, new_mom, new_fg, new_bn); `fg` empty = FoolsGold off."""
-    keep0 = valid != 0
-
-    def per_client(v, like):
-        return v.reshape((v.shape[0],) + (1,) * (like.dim() - 1))
-
-    new_p, new_m, new_f, new_b = {}, {}, {}, {}
-    for k, w in params.items():
-        g, m = grads[k], mom[k]
-        keep = per_client(keep0, w)
-        g2 = g + weight_decay * w
-        m2 = momentum * m + g2
-        w2 = w - per_client(lr, w) * m2
-        new_p[k] = torch.where(keep, w2, w)
-        new_m[k] = torch.where(keep, m2, m)
-    for k, f in fg.items():
-        new_f[k] = torch.where(per_client(keep0, f), f + grads[k], f)
-    for k, b in bn_old.items():
-        new_b[k] = torch.where(per_client(keep0, b), bn_new[k], b)
-    return new_p, new_m, new_f, new_b
+    """:func:`plain_update_` on copies of the state: returns (new_params,
+    new_mom, new_fg, new_bn) and leaves its inputs as they were."""
+    new = [{k: v.clone() for k, v in t.items()}
+           for t in (params, mom, fg, bn_old)]
+    plain_update_(lr, valid, new[0], grads, new[1], new[2], bn_new, new[3],
+                  momentum=momentum, weight_decay=weight_decay)
+    return tuple(new)
 
 
 # ---------------------------------------------------------------- the kernel
@@ -271,13 +294,8 @@ def fused_step_update(lr: torch.Tensor, valid: torch.Tensor, params: Tree,
     if lr.device.type != "cpu":
         raise ValueError(f"fused_step_update: unsupported device {lr.device}")
     _validated(lr, valid, params, grads, mom, fg, bn_new, bn_old)
-    new_p, new_m, new_f, new_b = fused_step_update_reference(
-        lr, valid, params, grads, mom, fg, bn_new, bn_old,
-        momentum=momentum, weight_decay=weight_decay)
-    for dst, src in ((params, new_p), (mom, new_m), (fg, new_f),
-                     (bn_old, new_b)):
-        for k, t in src.items():
-            dst[k].copy_(t)
+    plain_update_(lr, valid, params, grads, mom, fg, bn_new, bn_old,
+                  momentum=momentum, weight_decay=weight_decay)
 
 
 fused_step_update.launches = 0

@@ -2,7 +2,9 @@
 
     python -m dba_mod_tpu_torch.profile_round [--params configs/cifar_params.yaml]
 
-Builds the experiment at the config's full width on synthetic data (fresh
+Every workload: the image ones and LOAN, whose round gets its dropout keep
+masks as the engine's do (drawn on the CPU from the (random_seed, epoch,
+segment) stream). Builds the experiment at the config's full width on synthetic data (fresh
 weights: the timing does not depend on them), runs one warm-up round, then
 times one poisoned round phase by phase with the device synchronised
 between phases (train, aggregate under the config's rule, local battery,
@@ -59,13 +61,13 @@ def _profile(exp) -> dict:
     warm_s = time.perf_counter() - t0
 
     def phases(inputs):
-        tasks, idx, mask, num_samples = inputs
+        tasks, idx, mask, num_samples, drop = inputs
         out = {"active_steps": int(mask[0].any(axis=(0, 3)).sum())}
         gv = exp.global_vars
         _sync(dev)
         t = time.perf_counter()
         fu.fused_step_update.launches = 0
-        train = eng.train_fn(gv, tasks, idx, mask)
+        train = eng.train_fn(gv, tasks, idx, mask, drop)
         _sync(dev)
         out["train_s"] = time.perf_counter() - t
         out["fused_launches"] = fu.fused_step_update.launches
@@ -99,6 +101,7 @@ def _profile(exp) -> dict:
 
     # one poisoned round's inputs, run twice: timed, then traced
     inputs = exp.build_static_round_inputs(2)
+    inputs = inputs + (exp._dropout_masks(2, inputs[1].shape),)
     timed = phases(inputs)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":

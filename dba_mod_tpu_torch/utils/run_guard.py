@@ -26,8 +26,10 @@ handlers installed, no threads started, no per-round work beyond one
 attribute check. :class:`RunGuard` bundles them behind the config knobs
 (``graceful_shutdown``, ``watchdog_soft_s``, ``watchdog_hard_s``).
 
-The JAX package's elastic verdict (peer-health probe, exit code 77 for a
-lost peer host) belongs to multi-device runs, ROADMAP A18, and is not here.
+In a multi-process run with heartbeats on, the watchdog also asks the
+peer-health layer (parallel/distributed.py::PeerHealth) for its verdict: a
+hard stall that coincides with stale peer heartbeats exits
+:data:`EXIT_PEER_LOST` instead of :data:`EXIT_WATCHDOG`.
 """
 from __future__ import annotations
 
@@ -44,12 +46,17 @@ from dba_mod_tpu_torch.utils import telemetry
 logger = logging.getLogger("dba_mod_tpu_torch")
 
 # Distinct exit codes so run wrappers can tell the exit shapes apart
-# without parsing logs; 75/76 follow the sysexits.h convention of
-# "temporary failure — retrying is the fix".
+# without parsing logs; 75/76/77 follow the sysexits.h convention of
+# "temporary failure — retrying is the fix", and 77 also tells the wrapper
+# the retry must SHRINK the world.
 EXIT_INTERRUPTED = 75   # graceful stop after SIGTERM/SIGINT; resume-able
 EXIT_WATCHDOG = 76      # watchdog hard abort: a sync point stalled past
                         # watchdog_hard_s; the last committed checkpoint
                         # is the resume point
+EXIT_PEER_LOST = 77     # a peer process is gone (a stall coincides with
+                        # stale heartbeats, or the round-boundary check
+                        # found a stale peer): relaunch the SURVIVORS with
+                        # WORLD_SIZE shrunk and --resume auto
 
 _NULL_CM = contextlib.nullcontext()
 
@@ -190,6 +197,14 @@ class Watchdog:
         self.soft_stalls = 0
         self.hard_aborts = 0
         self.epoch: Optional[int] = None  # the round in flight, for the log
+        # elastic verdict hook (PeerHealth.lost_peers): a hard stall that
+        # coincides with stale peer heartbeats is a lost peer, and the
+        # abort exits EXIT_PEER_LOST instead of EXIT_WATCHDOG
+        self.peer_probe: Optional[Callable[[], List[int]]] = None
+        # the verdict the hard-abort path logged: _default_abort reuses it,
+        # so the logged code, the run/peer_lost counter and the exit code
+        # cannot disagree
+        self._verdict: Optional["tuple[int, List[int]]"] = None
 
     @contextlib.contextmanager
     def zone(self, label: str):
@@ -263,25 +278,47 @@ class Watchdog:
                         continue
                     self.hard_aborts += 1
                     telemetry.count("watchdog/hard_aborts")
+                    code, lost = self._verdict = self.abort_verdict()
+                    if lost:
+                        telemetry.count("run/peer_lost")
                     logger.critical(
                         "watchdog: %s stalled past the hard limit (%.1fs > "
-                        "%.1fs) — epoch=%s span stack at entry=%s; aborting "
-                        "with exit code %d (the last committed checkpoint "
-                        "is the resume point)", z.label, elapsed,
+                        "%.1fs) — epoch=%s span stack at entry=%s; %s"
+                        "aborting with exit code %d (the last committed "
+                        "checkpoint is the resume point)", z.label, elapsed,
                         self.hard_s, z.epoch, z.spans or ["-"],
-                        EXIT_WATCHDOG)
+                        (f"stall coincides with missed heartbeats from "
+                         f"peer(s) {lost} — peer lost, relaunch the "
+                         f"survivors shrunk; " if lost else ""),
+                        code)
                     self._on_hard()
                     # an injected on_hard (tests) returns — drop the zone
                     # so the abort doesn't re-fire every poll
                     self._zone = None
 
-    @staticmethod
-    def _default_abort() -> None:  # pragma: no cover — kills the process
-        # land queued async checkpoint writes first (bounded), so the
-        # newest committed round is resumable
+    def abort_verdict(self) -> "tuple[int, List[int]]":
+        """Classify the hard stall: (exit code, lost peer ids). A stall
+        with stale peer heartbeats is a peer loss (EXIT_PEER_LOST): the
+        survivor is wedged in a collective whose peer vanished, and only a
+        shrunk relaunch can make progress; anything else is the generic
+        wedged-runtime abort (EXIT_WATCHDOG). A probe failure never masks
+        the abort itself."""
+        lost: List[int] = []
+        if self.peer_probe is not None:
+            try:
+                lost = list(self.peer_probe())
+            except Exception:  # noqa: BLE001 — the verdict is best-effort
+                lost = []
+        return (EXIT_PEER_LOST if lost else EXIT_WATCHDOG), lost
+
+    def _default_abort(self) -> None:  # pragma: no cover — kills the process
+        # reuse the verdict _loop just logged; land queued async checkpoint
+        # writes first (bounded), so the newest committed round is
+        # resumable
+        code, _ = self._verdict or self.abort_verdict()
         _flush_checkpoints_bounded()
         logging.shutdown()
-        os._exit(EXIT_WATCHDOG)
+        os._exit(code)
 
 
 class RunGuard:
@@ -314,6 +351,14 @@ class RunGuard:
         if not self.watchdog.enabled:
             return _NULL_CM
         return self.watchdog.zone(label)
+
+    def attach_peer_health(self, peers) -> None:
+        """Wire the peer-health layer into the watchdog's verdict: a hard
+        stall that coincides with stale heartbeats exits EXIT_PEER_LOST
+        (77) instead of EXIT_WATCHDOG (76). `peers` is a PeerHealth
+        (parallel/distributed.py), or None to detach."""
+        self.watchdog.peer_probe = (peers.lost_peers
+                                    if peers is not None else None)
 
     def __enter__(self) -> "RunGuard":
         self.shutdown.install()

@@ -21,6 +21,7 @@ tests' MNIST size (tests/test_async_rounds.py::BASE).
   default."""
 import json
 import logging
+from concurrent.futures import ThreadPoolExecutor
 import signal
 from pathlib import Path
 
@@ -417,14 +418,16 @@ def test_sigkill_between_merges_then_auto_resume_through_the_cli(tmp_path):
     SIGKILLed once merge 3's checkpoint is committed — possibly inside a
     later save, when the resume falls back to model_last's .prev clone —
     then relaunched with --resume auto: the run ends bitwise the straight
-    run, every step recorded once."""
+    run, every step recorded once. The straight run goes on a worker
+    thread beside the killed process."""
     import os
     from dba_mod_tpu_torch import crash_smoke
     cfg = dict(yaml.safe_load(open(REPO / "configs" /
                                    "async_smoke_params.yaml")),
                async_steps=12)
     ref = _exp(cfg, True, run_dir=str(tmp_path / "ref"))
-    ref.run()
+    pool = ThreadPoolExecutor(max_workers=1)
+    ref_done = pool.submit(ref.run)
     cfg_path = tmp_path / "async.yaml"
     cfg_path.write_text(yaml.safe_dump(dict(cfg,
                                             run_dir=str(tmp_path / "run"))))
@@ -433,6 +436,8 @@ def test_sigkill_between_merges_then_auto_resume_through_the_cli(tmp_path):
                                        timeout=240, sig=signal.SIGKILL)
     assert info["epochs"] == list(range(1, 13))
     assert info["resumed_from"][1] >= 3
+    ref_done.result()
+    pool.shutdown()
     like = ref.global_vars
     got, epoch, _ = ckpt.load_checkpoint(
         info["folder"] / "model_last.pt.tar", like)
@@ -637,10 +642,15 @@ def test_inert_knobs_are_a_bitwise_noop():
 @pytest.mark.parametrize("bad,match", [
     (dict(aggregation_methods="foolsgold"), "foolsgold"),
     (dict(aggr_epoch_interval=2), "aggr_epoch_interval"),
-    (dict(fault_host_loss_prob=0.1), "A18")])
+    pytest.param(dict(fault_num_hosts=-1), "fault_num_hosts",
+                 id="bad2-A18")])
 def test_async_config_rejections(bad, match):
-    with pytest.raises((ValueError, NotImplementedError), match=match):
-        Params.from_dict(dict(BASE, mode="async", **bad))
+    """The async engine's config rejections are the reference's (the A18
+    case: the host-loss lane's host count is validated as there)."""
+    from dba_mod_tpu.config import Params as JParams
+    for P in (Params, JParams):
+        with pytest.raises(ValueError, match=match):
+            P.from_dict(dict(BASE, mode="async", **bad))
 
 
 @pytest.mark.parametrize("knob", ["overlap_eval", "telemetry"])
@@ -654,7 +664,7 @@ def test_async_config_accepts_the_a17_knobs(knob):
 
 def test_async_config_is_ported_and_runs_on_the_card_by_default(
         monkeypatch, tmp_path):
-    """check_ported accepts mode: async and names no A16; the CLI runs it
+    """The config accepts mode: async; the CLI runs it
     on the card unless --device cpu is given, and without a card asking
     for it raises."""
     from dba_mod_tpu_torch.main import main

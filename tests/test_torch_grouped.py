@@ -16,6 +16,7 @@ tests/test_torch_slice.py) against the JAX package's round. No JAX CIFAR
 round program runs here: the segment test covers the JAX side."""
 import dataclasses
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -255,14 +256,20 @@ def test_grouped_segment_matches_jax(monkeypatch):
                     torch.from_numpy(plan.idx), torch.from_numpy(plan.mask),
                     plan.mask.any(axis=(0, 3)))
 
-    jres = jax_pass(jnp.float32)
-    res = port(torch.float32)
+    # the JAX float32 pass runs on a worker thread beside the port's two
+    # passes (XLA's work runs without the interpreter lock); the float64
+    # JAX pass patches the JAX modules, so it starts after that thread
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        jres_future = pool.submit(jax_pass, jnp.float32)
+        res = port(torch.float32)
+        with monkeypatch.context() as m:
+            m.setattr(client_mod, "fused_step_update", _plain_update)
+            res64 = port(torch.float64)
+        jres = jres_future.result()
     with monkeypatch.context() as m, jax.enable_x64(True):
         for mod in (jgrouped_model_mod, jgrouped_client_mod):
             m.setattr(mod, "jnp", _Wide())
         jres64 = jax_pass(jnp.float64)
-        m.setattr(client_mod, "fused_step_update", _plain_update)
-        res64 = port(torch.float64)
 
     def parts(r, j):
         if j:

@@ -190,18 +190,28 @@ def test_fedavg_matches_jax():
     assert abs(float(n.std()) - 0.5) < 0.05
 
 
-@pytest.mark.parametrize("override,item", [
-    pytest.param({"fault_injection": True, "fault_host_loss_prob": 0.1},
-                 "A18", id="override0-A18"),
-    pytest.param({"num_devices": 4}, "A18", id="override4-A18"),
+@pytest.mark.parametrize("override,bad", [
+    pytest.param({"fault_injection": True, "fault_host_loss_prob": 0.1,
+                  "fault_num_hosts": 2}, {"fault_num_hosts": -1},
+                 id="override0-A18"),
+    pytest.param({"num_devices": 4, "heartbeat_interval_s": 0.5},
+                 {"heartbeat_timeout_s": -1.0}, id="override4-A18"),
 ])
-def test_unported_knobs_raise(override, item):
+def test_unported_knobs_raise(override, bad):
+    """The A18 knobs the port refused before the multi-device layer was
+    ported (num_devices, heartbeats, the host-loss lane) now parse as the
+    reference's config parses them, and their invalid values raise the
+    reference's ValueError."""
     import yaml
     raw = yaml.safe_load(open(SMOKE))
     raw.update(override)
-    with pytest.raises(NotImplementedError, match=item):
+    assert cfg.Params.from_dict(raw).raw == jcfg.Params.from_dict(raw).raw
+    assert not hasattr(cfg, "check_ported")
+    raw.update(bad)
+    with pytest.raises(ValueError, match=next(iter(bad))):
         cfg.Params.from_dict(raw)
-    jcfg.Params.from_dict(raw)     # the reference accepts the same dict
+    with pytest.raises(ValueError, match=next(iter(bad))):
+        jcfg.Params.from_dict(raw)
 
 
 @pytest.mark.parametrize("override", [
@@ -222,8 +232,8 @@ def test_unported_knobs_raise(override, item):
          "A17-overlap_eval", "A17-pipeline_rounds", "A19-sequential_debug",
          "A19-grouped_clients"])
 def test_ported_knobs_pass(override):
-    """The knobs of ROADMAP A14-A17, A19 and A20 are ported:
-    check_ported accepts them, as the reference's config does."""
+    """The knobs of ROADMAP A14-A17, A19 and A20 are ported: the config
+    accepts them, as the reference's config does."""
     import yaml
     raw = yaml.safe_load(open(SMOKE))
     raw.update(override)

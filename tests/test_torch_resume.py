@@ -20,6 +20,7 @@ the FoolsGold weight vectors (weight_result.csv), every recorded row
 - ``python -m dba_mod_tpu_torch.crash_smoke --device cpu``: SIGTERM, exit
   75, relaunch, every round once in one folder."""
 import json
+from concurrent.futures import ThreadPoolExecutor
 import os
 import signal
 import subprocess
@@ -115,8 +116,12 @@ def test_graceful_stop_then_auto_resume_is_bitwise(tmp_path, monkeypatch):
 
 
 def test_kill9_then_auto_resume_is_bitwise(tmp_path):
+    """The uninterrupted run goes on a worker thread beside the killed
+    process (each run is its own Experiment; the results are those of
+    running them one after the other)."""
     ref = _exp(CFG, run_dir=str(tmp_path / "ref"))
-    ref.run(6)
+    pool = ThreadPoolExecutor(max_workers=1)
+    ref_done = pool.submit(ref.run, 6)
     cfg_path = tmp_path / "crash.yaml"
     cfg_path.write_text(yaml.safe_dump(dict(CFG, epochs=6,
                                             run_dir=str(tmp_path / "run"))))
@@ -142,6 +147,8 @@ def test_kill9_then_auto_resume_is_bitwise(tmp_path):
     assert 2 <= b.start_epoch <= 6, b.start_epoch
     b.run(6)
     assert crash_smoke.recorded_epochs(folder) == [1, 2, 3, 4, 5, 6]
+    ref_done.result()
+    pool.shutdown()
     _assert_same_run(ref, folder, b)
 
 

@@ -304,7 +304,7 @@ def test_robust_rule_matches_jax(case):
      "screen_updates": True, "max_round_retries": 1, "retry_backoff_s": 0.5,
      "min_surviving_clients": 2}])
 def test_robust_knobs_are_ported(override):
-    """config.check_ported lets the robust server's knobs through."""
+    """The config lets the robust server's knobs through."""
     raw = yaml.safe_load(open(SMOKE))
     assert Params.from_dict(dict(raw, **override)).raw == \
         JParams.from_dict(dict(raw, **override)).raw

@@ -17,6 +17,7 @@ import hashlib
 import io
 import os
 import pickle
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -174,7 +175,10 @@ def _engine_round(jexp, texp, epoch, evals=True, flip_client=None,
     (per-client max abs delta diffs, global max abs diff, JAX and port
     global evals; None without `evals`). `share`: (a key, the pair's
     reference γ, shared_cache()) under which the JAX train result is kept
-    for the other test of the pair (_jax_train)."""
+    for the other test of the pair (_jax_train). The JAX train and battery
+    run on a worker thread while the port computes its own (XLA's work
+    runs without the interpreter lock); the results are the same as run
+    one after the other."""
     jp, tp = jexp.params, texp.params
     jnames, _ = jselect(jp, epoch, jexp.participants, jexp.benign_names,
                         jexp.select_rng)
@@ -190,15 +194,19 @@ def _engine_round(jexp, texp, epoch, evals=True, flip_client=None,
     np.testing.assert_array_equal(jplan.mask, tplan.mask)
     C = len(jnames)
     rng_t, rng_a = jax.random.split(jax.random.key(0))
-    train = _jax_train(jexp, jt, jplan, C, rng_t,
-                       None if share is None else
-                       ((share[0], epoch),) + tuple(share[1:]))
-    jagg = jexp.engine.aggregate_fn(
-        jexp.global_vars, jexp.fg_state, train.deltas, train.fg_grads,
-        train.fg_feature, jnp.asarray(jt.participant_id),
-        jnp.asarray(jplan.num_samples.astype(np.float32)), rng_a)
-    ttrain = texp.engine.train_fn(texp.global_vars, [tt],
-                                  tplan.idx[None], tplan.mask[None])
+
+    def jax_side():
+        train = _jax_train(jexp, jt, jplan, C, rng_t,
+                           None if share is None else
+                           ((share[0], epoch),) + tuple(share[1:]))
+        jagg = jexp.engine.aggregate_fn(
+            jexp.global_vars, jexp.fg_state, train.deltas, train.fg_grads,
+            train.fg_feature, jnp.asarray(jt.participant_id),
+            jnp.asarray(jplan.num_samples.astype(np.float32)), rng_a)
+        jev = (jax.device_get(jexp.engine.global_evals_fn(jagg.new_vars))
+               if evals else None)
+        return train, jagg, jev
+
     name = texp.model_def.name
     noise = None
     if bool(jp["diff_privacy"]):
@@ -206,8 +214,14 @@ def _engine_round(jexp, texp, epoch, evals=True, flip_client=None,
         jn = jax.device_get(dp_noise_like(rng_a, jexp.global_vars,
                                           float(jp["sigma"])))
         noise = convert.from_jax_numpy(name, jn.params, jn.batch_stats)
-    tagg = texp.engine.aggregate_fn(texp.global_vars, ttrain.deltas,
-                                    noise=noise)
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        jax_future = pool.submit(jax_side)
+        ttrain = texp.engine.train_fn(texp.global_vars, [tt],
+                                      tplan.idx[None], tplan.mask[None])
+        tagg = texp.engine.aggregate_fn(texp.global_vars, ttrain.deltas,
+                                        noise=noise)
+        tev = texp.engine.global_evals(tagg.new_vars) if evals else None
+        train, jagg, jev = jax_future.result()
     jd = jax.device_get(train.deltas)
     per_client, client_diff = [], {}
     for c in range(C):
@@ -230,10 +244,6 @@ def _engine_round(jexp, texp, epoch, evals=True, flip_client=None,
         g_diffs = [g - w * d for g, d in zip(g_diffs,
                                              client_diff[flip_client])]
     g_diff = max(float(np.abs(g).max()) for g in g_diffs)
-    jev = tev = None
-    if evals:
-        jev = jax.device_get(jexp.engine.global_evals_fn(jagg.new_vars))
-        tev = texp.engine.global_evals(tagg.new_vars)
     jexp.global_vars, texp.global_vars = jagg.new_vars, tagg.new_vars
     return per_client, g_diff, jev, tev
 
