@@ -129,14 +129,17 @@ Phases, each a hard failure (non-zero exit) when it goes wrong:
    CPU, logits and running stats within 2e-3.
 13. the clients mesh, multi-process worlds and the elastic layer: (a) in
    a fresh process under deterministic kernels, phase 4's config from its
-   pretrain through the unsharded engine and through a 2-shard mesh on
-   [cuda:0, cuda:0]: one train-mode forward of the round's first batch as
-   one stack and as two shards within 5e-5 (logits, new BN stats), one
-   local step per client through both engines within 5e-5 (one fused
-   launch a step, two on the mesh), then one poisoned round without the
-   local battery through each experiment: the mesh's fused launches are
-   its shards' local steps, accuracies within 1 point, round_time beside
-   phase 4's, the new BN stats' gap printed; (b) a 2-rank world on the
+   pretrain: one poisoned round without the local battery through a
+   2-shard mesh on [cuda:0, cuda:0] (its fused launches are its shards'
+   local steps, round_time beside phase 4's); the round's training run
+   through the unsharded engine one shard's slice at a time, joined in
+   client order and held bitwise to the mesh's gathered stack; the same
+   round through an unsharded experiment that aggregates those slices'
+   results, its new global model held bitwise to the mesh's; one
+   train-mode forward of the round's first batch as one stack and as two
+   shards, and one local step per client through both engines at full
+   width, each within 5e-5 (one fused launch a step, two on the mesh);
+   (b) a 2-rank world on the
    one card (gloo) as two ``main train`` processes with torchrun's
    environment, one poisoned round of phase 4's config without the local
    battery from its pretrain: bitwise-equal rank models (each rank's
@@ -2354,22 +2357,26 @@ def _wait_all(procs, timeout: float) -> list:
 
 def mesh_shards(tmp: Path) -> int:
     """13a, in a fresh process under deterministic kernels: phase 4's
-    config from its pretrain, the unsharded engine against a 2-shard mesh
-    on [cuda:0, cuda:0]. One train-mode forward of the round's first batch
-    (the 10 clients vmapped at once, and as two shards of 5), one local
-    step per client through both engines' train_fn, then one poisoned
-    round without the local battery through each experiment: the mesh's
-    fused launches are each shard's local steps, and the new global
-    model's BN running stats are printed against the unsharded round's
-    (cuDNN picks its algorithms by the vmapped convolution's width, and
-    the round's ×100 adversary amplifies a one-step difference over its
-    steps, so the round is held by its accuracies; the bounds sit on the
-    forward and the one step). Prints one JSON line."""
+    config from its pretrain, a 2-shard mesh on [cuda:0, cuda:0] against
+    the unsharded engine. One poisoned round without the local battery
+    through the mesh experiment; the same round's training run through the
+    unsharded engine one shard's slice of clients at a time (the width
+    each shard trains at, so cuDNN picks the same algorithms), the slices'
+    deltas and metrics joined here in client order and held bitwise to the
+    mesh's gathered stack; then the same round through an unsharded
+    experiment whose train_fn returns those slices' results, so its server
+    rule aggregates the unsharded engine's deltas: its new global model is
+    held bitwise to the mesh round's. Also one train-mode forward of the
+    round's first batch (the 10 clients vmapped at once, and as two shards
+    of 5) and one local step per client through both engines' train_fn at
+    full width, within 5e-5. Prints one JSON line."""
+    import numpy as np
     import torch
     import yaml
     from dba_mod_tpu_torch.utils.device import use_deterministic_kernels
     use_deterministic_kernels()
     from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl import rounds
     from dba_mod_tpu_torch.fl.experiment import Experiment
     from dba_mod_tpu_torch.models import ModelVars
     from dba_mod_tpu_torch.ops import fused_update as fu
@@ -2390,37 +2397,80 @@ def mesh_shards(tmp: Path) -> int:
         raise AssertionError("13a: the mesh engine is not sharded")
     gv = plain.global_vars          # the pretrain, before the rounds
     bounds = shard_bounds(mesh.engine.mesh, int(plain.params["no_models"]))
-    # one poisoned round through each experiment
-    rounds_ = {}
-    for name, e in exps.items():
-        seen = []
-        real = e.engine.train_fn
 
-        def spy(gv_, tasks_, idx_, mask_, *a, _real=real, _seen=seen):
-            _seen.append(mask_)
-            return _real(gv_, tasks_, idx_, mask_, *a)
-        e.engine.train_fn = spy
-        fu.fused_step_update.launches = 0
-        r = e.run_round(2)
-        torch.cuda.synchronize()
-        (m,) = seen
-        if name == "mesh":
-            want = sum(int(m[s][lo:hi].any(axis=(0, 3)).sum())
-                       for s in range(m.shape[0]) for lo, hi in bounds)
-        else:
-            want = int(sum(m[s].any(axis=(0, 3)).sum()
-                           for s in range(m.shape[0])))
-        rounds_[name] = {"round_time": r["round_time"],
-                         "launches": fu.fused_step_update.launches,
-                         "steps": want, "global_acc": r["global_acc"],
-                         "backdoor_acc": r["backdoor_acc"]}
-        if rounds_[name]["launches"] != want:
-            raise AssertionError(f"13a {name}: {rounds_[name]}")
-    tasks, idx, mask, _ = plain.build_static_round_inputs(2)
-    C = int(idx.shape[1])
+    # the mesh round; its train_fn's inputs and gathered result are kept
+    seen = {}
+    real = mesh.engine.train_fn
+
+    def mesh_spy(gv_, tasks_, idx_, mask_, *a):
+        seen.update(tasks=tasks_, idx=idx_, mask=mask_)
+        seen["res"] = real(gv_, tasks_, idx_, mask_, *a)
+        return seen["res"]
+    mesh.engine.train_fn = mesh_spy
+    fu.fused_step_update.launches = 0
+    r = mesh.run_round(2)
+    torch.cuda.synchronize()
+    tasks, idx, mask, got = (seen["tasks"], seen["idx"], seen["mask"],
+                             seen["res"])
+    steps = sum(int(mask[i][lo:hi].any(axis=(0, 3)).sum())
+                for i in range(mask.shape[0]) for lo, hi in bounds)
+    mesh_round = {"round_time": r["round_time"],
+                  "launches": fu.fused_step_update.launches, "steps": steps,
+                  "global_acc": r["global_acc"],
+                  "backdoor_acc": r["backdoor_acc"]}
+    if mesh_round["launches"] != steps or steps == 0:
+        raise AssertionError(f"13a mesh round: {mesh_round}")
     if not tasks[0].poisoning_per_batch.any():
         raise AssertionError("13a: round 2's inputs do not poison")
+
+    # the same training, one shard's slice at a time, unsharded engine
+    fu.fused_step_update.launches = 0
+    t1 = time.perf_counter()
+    parts = [plain.engine.train_fn(
+        gv, [type(t)(*(np.asarray(f)[lo:hi] for f in t)) for t in tasks],
+        np.ascontiguousarray(idx[:, lo:hi]),
+        np.ascontiguousarray(mask[:, lo:hi])) for lo, hi in bounds]
+    torch.cuda.synchronize()
+    slices_s = time.perf_counter() - t1
+    slice_launches = fu.fused_step_update.launches
+    if slice_launches != steps:
+        raise AssertionError(f"13a: the slices launched {slice_launches} "
+                             f"times for {steps} steps")
+    gather = {}
+    for part in ("params", "batch_stats"):
+        gather[part] = max(float((getattr(got.deltas, part)[k] - torch.cat(
+            [getattr(q.deltas, part)[k] for q in parts])).abs().max())
+            for k in getattr(got.deltas, part))
+    gather["metrics"] = max(float((a - torch.cat(
+        [m[j] for m in (q.metrics for q in parts)], 1)).abs().max())
+        for j, a in enumerate(got.metrics))
+    gather["delta_norms"] = float((got.delta_norms - torch.cat(
+        [q.delta_norms for q in parts])).abs().max())
+
+    # the same round through an unsharded experiment that aggregates the
+    # slices' results
+    def plain_train(gv_, tasks_, idx_, mask_, *a):
+        if not (np.array_equal(idx_, idx) and np.array_equal(mask_, mask)):
+            raise AssertionError("13a: the two experiments' round 2 "
+                                 "inputs differ")
+        return rounds._cat_shards(parts, plain.device)
+    plain.engine.train_fn = plain_train
+    fu.fused_step_update.launches = 0
+    rp = plain.run_round(2)
+    torch.cuda.synchronize()
+    agg = {part: max(float((getattr(plain.global_vars, part)[k]
+                            - getattr(mesh.global_vars, part)[k])
+                           .abs().max())
+                     for k in getattr(plain.global_vars, part))
+           for part in ("params", "batch_stats")}
+    agg_acc = {k: [rp[k], r[k]] for k in ("global_acc", "backdoor_acc")}
+    moved = max(float((mesh.global_vars.params[k] - gv.params[k])
+                      .abs().max()) for k in gv.params)
+    del parts, got, seen
+
     # one train-mode forward of the round's first batch, stamped
+    tasks, idx, mask, _ = plain.build_static_round_inputs(2)
+    C = int(idx.shape[1])
     md, data, dev = plain.model_def, plain.device_data, plain.device
     task = tasks[0].to_device(dev)
     x, y = data.fetch_train(task.slot,
@@ -2436,14 +2486,15 @@ def mesh_shards(tmp: Path) -> int:
             {k: v[lo:hi] for k, v in st.items()}, x[lo:hi])
     with torch.no_grad():
         lv, sv = fwd(0, C)
-        parts = [fwd(lo, hi) for lo, hi in bounds]
-    ls = torch.cat([q[0] for q in parts])
-    ss = {k: torch.cat([q[1][k] for q in parts]) for k in sv}
+        fparts = [fwd(lo, hi) for lo, hi in bounds]
+    ls = torch.cat([q[0] for q in fparts])
+    ss = {k: torch.cat([q[1][k] for q in fparts]) for k in sv}
     forward = {"logits": float((lv - ls).abs().max()),
                "batch_stats": max(float((sv[k] - ss[k]).abs().max())
                                   for k in sv)}
-    # one local step per client through each engine
+    # one local step per client through each engine, at full width
     one = _first_steps(mask, 1)
+    del plain.engine.train_fn, mesh.engine.train_fn     # the spies
     launches, deltas = {}, {}
     for name, e in exps.items():
         fu.fused_step_update.launches = 0
@@ -2456,21 +2507,89 @@ def mesh_shards(tmp: Path) -> int:
     step_size = {part: max(float(t.abs().max()) for t in
                            getattr(deltas["plain"], part).values())
                  for part in ("params", "batch_stats")}
-    del deltas
-    bn = {k: float((plain.global_vars.batch_stats[k]
-                    - mesh.global_vars.batch_stats[k]).abs().max())
-          for k in plain.global_vars.batch_stats}
-    bn_size = max(float(v.abs().max())
-                  for v in plain.global_vars.batch_stats.values())
     out = {"setup_s": setup_s, "shards": bounds, "forward": forward,
            "one_step": step, "one_step_size": step_size,
-           "rounds": rounds_, "bn_stats_max_diff": max(bn.values()),
-           "bn_stats_size": bn_size,
+           "mesh_round": mesh_round, "slices_train_s": slices_s,
+           "gather_max_diff": gather, "aggregate_max_diff": agg,
+           "aggregate_acc": agg_acc, "global_moved": moved,
            "finite": all(bool(torch.isfinite(v).all()) for v in
                          list(mesh.global_vars.params.values())
                          + list(mesh.global_vars.batch_stats.values()))}
     print(json.dumps(out), flush=True)
     return 0
+
+
+def mesh_cards() -> int:
+    """``python3 chip_smoke.py mesh-cards``, on a machine with two or more
+    cards (not part of the one-card run): full-width CIFAR
+    (configs/cifar_params.yaml, its synthetic set, random weights from its
+    seed) under deterministic kernels, one benign round's train_fn through
+    the unsharded engine on cuda:0, a 2-shard mesh on [cuda:0, cuda:0] and
+    one on [cuda:0, cuda:1]: the two meshes' deltas bit for bit, each
+    shard's fused launches, and the train seconds of each layout (the
+    median of 3 after a warm-up), so the two-card mesh's overlap shows
+    against the one-card mesh. Prints one JSON line."""
+    import statistics as st
+    import torch
+    import yaml
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        print("mesh-cards needs two CUDA cards", file=sys.stderr)
+        return 1
+    from dba_mod_tpu_torch.utils.device import use_deterministic_kernels
+    use_deterministic_kernels()
+    from dba_mod_tpu_torch.config import Params
+    from dba_mod_tpu_torch.fl.experiment import Experiment
+    from dba_mod_tpu_torch.ops import fused_update as fu
+    from dba_mod_tpu_torch.parallel.mesh import shard_bounds
+
+    raw = dict(yaml.safe_load(
+        (REPO / "configs" / "cifar_params.yaml").read_text()),
+        synthetic_data=True, resumed_model=False, local_eval=False,
+        save_model=False)
+    layouts = {"unsharded": None, "mesh_one_card": ["cuda:0", "cuda:0"],
+               "mesh_two_cards": ["cuda:0", "cuda:1"]}
+    exps = {n: Experiment(Params.from_dict(raw), save_results=False,
+                          device="cuda", mesh_devices=d)
+            for n, d in layouts.items()}
+    first = exps["unsharded"]
+    gv = first.global_vars
+    tasks, idx, mask, _ = first.build_static_round_inputs(1)
+    steps = int(sum(mask[i].any(axis=(0, 3)).sum()
+                    for i in range(mask.shape[0])))
+    shard_steps = sum(int(mask[i][lo:hi].any(axis=(0, 3)).sum())
+                      for i in range(mask.shape[0]) for lo, hi in
+                      shard_bounds(exps["mesh_one_card"].mesh,
+                                   int(idx.shape[1])))
+
+    def sync():
+        for d in range(2):
+            torch.cuda.synchronize(d)
+
+    out, deltas = {"card": card_line(), "steps": steps,
+                   "shard_steps": shard_steps}, {}
+    for name, e in exps.items():
+        e.engine.train_fn(gv, tasks, idx, mask)         # warm-up
+        sync()
+        times = []
+        for _ in range(3):
+            fu.fused_step_update.launches = 0
+            t0 = time.perf_counter()
+            res = e.engine.train_fn(gv, tasks, idx, mask)
+            sync()
+            times.append(time.perf_counter() - t0)
+        out[name] = {"train_s": st.median(times), "train_s_all": times,
+                     "launches": fu.fused_step_update.launches}
+        deltas[name] = res.deltas
+    a, b = deltas["mesh_one_card"], deltas["mesh_two_cards"]
+    out["two_vs_one_card_max_diff"] = max(
+        float((getattr(a, part)[k] - getattr(b, part)[k]).abs().max())
+        for part in ("params", "batch_stats") for k in getattr(a, part))
+    print(json.dumps(out), flush=True)
+    ok = (out["two_vs_one_card_max_diff"] == 0.0
+          and out["unsharded"]["launches"] == steps
+          and out["mesh_one_card"]["launches"] == shard_steps
+          and out["mesh_two_cards"]["launches"] == shard_steps)
+    return 0 if ok else 1
 
 
 def run_mesh_shards(tmp: Path, f32: dict) -> dict:
@@ -2484,26 +2603,37 @@ def run_mesh_shards(tmp: Path, f32: dict) -> dict:
                              + proc.stderr[-3000:])
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     out["seconds"] = time.perf_counter() - t0
-    r = out["rounds"]
+    r = out["mesh_round"]
     log(f"phase 13a: 2-shard mesh on [cuda:0, cuda:0], deterministic "
-        f"kernels: shards {out['shards']}; one train-mode forward, 2 shards "
-        f"vs 10 lanes at once: {out['forward']}; one local step per client "
-        f"through the mesh vs the unsharded engine: deltas' max abs diff "
-        f"{out['one_step']} of deltas up to {out['one_step_size']}; one "
-        f"poisoned round (no local battery): mesh {r['mesh']} vs unsharded "
-        f"{r['plain']} (phase 4, with the local battery: round_time "
-        f"{f32['round_s']}); new global BN stats max abs diff "
-        f"{out['bn_stats_max_diff']:.3g} of stats up to "
-        f"{out['bn_stats_size']:.3g}; {out['seconds']:.1f}s")
+        f"kernels: shards {out['shards']}; one poisoned round (no local "
+        f"battery) through the mesh: {r} (phase 4, with the local battery: "
+        f"round_time {f32['round_s']}); its gathered stack against the "
+        f"unsharded engine run one shard's slice at a time "
+        f"({out['slices_train_s']:.2f}s): max abs diff "
+        f"{out['gather_max_diff']}; the unsharded experiment's aggregate "
+        f"of those slices against the mesh round's global model: "
+        f"{out['aggregate_max_diff']}, accuracies (unsharded, mesh) "
+        f"{out['aggregate_acc']}; the round moved the model by up to "
+        f"{out['global_moved']:.3g}; one train-mode forward, 2 shards vs 10 "
+        f"lanes at once: {out['forward']}; one local step per client "
+        f"through the mesh vs the unsharded engine at full width: deltas' "
+        f"max abs diff {out['one_step']} of deltas up to "
+        f"{out['one_step_size']}; {out['seconds']:.1f}s")
+    if any(v != 0.0 for v in out["gather_max_diff"].values()):
+        raise AssertionError(f"13a: gathered stack {out['gather_max_diff']}")
+    if any(v != 0.0 for v in out["aggregate_max_diff"].values()):
+        raise AssertionError(f"13a: aggregate {out['aggregate_max_diff']}")
+    if any(a != b for a, b in out["aggregate_acc"].values()):
+        raise AssertionError(f"13a: accuracies {out['aggregate_acc']}")
+    if not out["global_moved"] > 0.0:
+        raise AssertionError("13a: the round left the global model as it "
+                             "was")
     if not max(out["forward"].values()) <= 5e-5:
         raise AssertionError(f"13a: sharded forward {out['forward']}")
     if not max(out["one_step"].values()) <= 5e-5:
         raise AssertionError(f"13a: one sharded step {out['one_step']}")
     if not out["finite"]:
         raise AssertionError("13a: non-finite mesh global model")
-    for k in ("global_acc", "backdoor_acc"):
-        if not abs(r["mesh"][k] - r["plain"][k]) <= 1.0:
-            raise AssertionError(f"13a: round {k} {r}")
     return out
 
 
@@ -2672,7 +2802,7 @@ def run_phase13(tmp: Path, f32: dict) -> dict:
     total = time.perf_counter() - t0
     log(f"phase 13: {total:.1f}s")
     return {"mesh": a, "world": b, "elastic": c, "seconds": total,
-            "cifar_launches": a["rounds"]["mesh"]["launches"]
+            "cifar_launches": a["mesh_round"]["launches"]
             + sum(b["launches"])}
 
 
@@ -2788,6 +2918,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["tiny-data"]:       # phase 6's data, made early
         sys.path.insert(0, str(REPO))
         sys.exit(write_tiny_data(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["mesh-cards"]:      # two cards or more only
+        sys.path.insert(0, str(REPO))
+        sys.exit(mesh_cards())
     if sys.argv[1:2] == ["mesh-shards"]:     # 13a's fresh process
         sys.path.insert(0, str(REPO))
         sys.exit(mesh_shards(Path(sys.argv[2])))

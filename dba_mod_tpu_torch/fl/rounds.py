@@ -26,15 +26,15 @@ stitches the results back together.
 
 With a clients mesh (parallel/mesh.py) the round is sharded: each shard
 trains its contiguous slice of the clients on its own device with the same
-vmapped segment step (one fused update launch per shard per step; every
-shard's work is enqueued before any result is read), runs its clients'
-local battery there, and the per-client stacks (deltas, FoolsGold
-accumulators, metrics, local-battery rows) are gathered onto the mesh's
-first device — and, in a multi-process world, all-gathered across ranks
-(parallel/distributed.py::gather_clients). The server rule then runs
-unchanged on the full stack (the reduction order of one device, so the
-rules have no sharded twin), and the global battery runs on the replicated
-global model.
+vmapped segment step (one fused update launch per shard per step; the
+shards of distinct cards run on a thread each, so the cards train at
+once), runs its clients' local battery there, and the per-client stacks
+(deltas, FoolsGold accumulators, metrics, local-battery rows) are
+gathered onto the mesh's first device — and, in a multi-process world,
+all-gathered across ranks (parallel/distributed.py::gather_clients). The
+server rule then runs unchanged on the full stack (the reduction order of
+one device, so the rules have no sharded twin), and the global battery
+runs on the replicated global model.
 
 `round_fn` runs them all and returns the payload in the order the JAX
 package's ``Experiment.finalize_round`` unpacks it, with RobustStats (or
@@ -50,6 +50,7 @@ with one scalar host read per check.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -629,19 +630,22 @@ class RoundEngine:
                       dropout_seq: Optional[List[tuple]] = None
                       ) -> TrainResult:
         """The clients sharded over the mesh: each shard trains its slice
-        on its device and runs its clients' local battery there (all of it
-        enqueued before anything is read), then the per-client stacks are
-        gathered onto the mesh's first device and, across ranks, through
-        one all-gather. Returns the full-stack TrainResult with the local
-        battery's rows in ``local_rows``."""
+        on its device and runs its clients' local battery there (distinct
+        cards from a thread each, :func:`_per_device`), then the per-client
+        stacks are gathered onto the mesh's first device and, across ranks,
+        through one all-gather. Returns the full-stack TrainResult with the
+        local battery's rows in ``local_rows``."""
         from dba_mod_tpu_torch.parallel.mesh import (replicate_for_mesh,
                                                      shard_round_inputs)
         mesh = self.mesh
         first = mesh.first
         reps = replicate_for_mesh(mesh, global_vars)
-        outs = []
-        for sh in shard_round_inputs(mesh, tasks_seq, idx_seq, mask_seq):
-            kit = self._kit(sh.device)
+        shards = shard_round_inputs(mesh, tasks_seq, idx_seq, mask_seq)
+        for sh in shards:               # built here, not in the threads
+            self._kit(sh.device)
+
+        def run(sh) -> TrainResult:
+            kit = self._kits[sh.device]
             gv = reps[sh.device]
             drop = (None if dropout_seq is None else
                     [tuple(d[sh.lo:sh.hi] for d in seg)
@@ -660,7 +664,9 @@ class RoundEngine:
                                              sh.tasks_seq, kit)
                        if self.num_segments > 1 else None)
                 rows = (loc, seg)
-            outs.append(res._replace(local_rows=rows))
+            return res._replace(local_rows=rows)
+
+        outs = _per_device(shards, run)
         res = outs[0] if len(outs) == 1 else _cat_shards(outs, first)
         if mesh.world_size > 1:
             from dba_mod_tpu_torch.parallel.distributed import gather_clients
@@ -1043,6 +1049,32 @@ def _join_parts(a, b) -> TrainResult:
     metrics, bloss, bdist = b
     return TrainResult(deltas, fg_grads, fg_feature, metrics, norms, bloss,
                        bdist, list(seg_deltas), rows)
+
+
+def _per_device(shards, fn) -> list:
+    """[fn(shard) for shard in shards], each shard with its device made
+    current. The shards of one device run one after the other; distinct
+    devices each get a thread of their own, so one card's steps are
+    enqueued while another's host thread waits on its card, and the cards
+    train at once."""
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, sh in enumerate(shards):
+        by_dev.setdefault(sh.device, []).append(i)
+    out: list = [None] * len(shards)
+
+    def work(dev, ids):
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            for i in ids:
+                out[i] = fn(shards[i])
+
+    if len(by_dev) == 1:
+        work(*next(iter(by_dev.items())))
+        return out
+    with concurrent.futures.ThreadPoolExecutor(len(by_dev)) as pool:
+        for f in [pool.submit(work, d, ids) for d, ids in by_dev.items()]:
+            f.result()
+    return out
 
 
 def _cat_shards(outs: List[TrainResult], dev: torch.device) -> TrainResult:

@@ -16,13 +16,14 @@ On a CUDA tensor the wrapper launches the hand-written kernel in
 updates w, m, fg and bn_old IN PLACE, where the JAX op is functional — the
 port saves writing a second copy of the client state every step. On a CPU
 tensor the wrapper runs the plain PyTorch version in place
-(:func:`plain_update_`; :func:`fused_step_update_reference` is the same
-function on copies). There is no fallback from the kernel to the plain
-version.
+(:func:`plain_update_`, bitwise the functional
+:func:`fused_step_update_reference` the kernel is held to). There is no
+fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Callable, Dict, Mapping, Tuple
 
 import torch
@@ -37,6 +38,7 @@ _KIND = {"sgd": 0, "sgd_acc": 1, "sel": 2}
 
 _lib = None
 _Table = None
+_count_lock = threading.Lock()
 
 
 # ---------------------------------------------------------------- plain version
@@ -44,12 +46,13 @@ def plain_update_(lr: torch.Tensor, valid: torch.Tensor, params: Tree,
                   grads: Tree, mom: Tree, fg: Tree, bn_new: Tree,
                   bn_old: Tree, *, momentum: float,
                   weight_decay: float) -> None:
-    """The JAX ``reference`` (dba_mod_tpu/ops/fused_update.py:166-179) in
-    torch ops, in place: the same order of operations, each product its
-    own op, so every valid client's row is what the functional form
-    computes. The rows of clients that are not valid are saved before
-    and written back after (nothing is done when none is valid). Updates
-    params, mom, fg and bn_old; `fg` empty = FoolsGold off."""
+    """The wrapper's CPU path: :func:`fused_step_update_reference` in
+    place, the same order of operations, each product its own op, so every
+    row is bitwise what the functional form computes
+    (tests/test_torch_fused_update.py holds the two equal). The rows of
+    clients that are not valid are saved before and written back after
+    (nothing is done when none is valid). Updates params, mom, fg and
+    bn_old; `fg` empty = FoolsGold off."""
     keep = valid != 0
     if not bool(keep.any()):
         return
@@ -82,13 +85,30 @@ def fused_step_update_reference(lr: torch.Tensor, valid: torch.Tensor,
                                 fg: Tree, bn_new: Tree, bn_old: Tree, *,
                                 momentum: float, weight_decay: float
                                 ) -> Tuple[Dict, Dict, Dict, Dict]:
-    """:func:`plain_update_` on copies of the state: returns (new_params,
-    new_mom, new_fg, new_bn) and leaves its inputs as they were."""
-    new = [{k: v.clone() for k, v in t.items()}
-           for t in (params, mom, fg, bn_old)]
-    plain_update_(lr, valid, new[0], grads, new[1], new[2], bn_new, new[3],
-                  momentum=momentum, weight_decay=weight_decay)
-    return tuple(new)
+    """The JAX ``reference`` (dba_mod_tpu/ops/fused_update.py:166-179) in
+    torch ops, functional, same order of operations, each product its own
+    op: the yardstick the kernel is held to and timed against. Returns
+    (new_params, new_mom, new_fg, new_bn); `fg` empty = FoolsGold off.
+    :func:`plain_update_` computes the same values in place."""
+    keep0 = valid != 0
+
+    def per_client(v, like):
+        return v.reshape((v.shape[0],) + (1,) * (like.dim() - 1))
+
+    new_p, new_m, new_f, new_b = {}, {}, {}, {}
+    for k, w in params.items():
+        g, m = grads[k], mom[k]
+        keep = per_client(keep0, w)
+        g2 = g + weight_decay * w
+        m2 = momentum * m + g2
+        w2 = w - per_client(lr, w) * m2
+        new_p[k] = torch.where(keep, w2, w)
+        new_m[k] = torch.where(keep, m2, m)
+    for k, f in fg.items():
+        new_f[k] = torch.where(per_client(keep0, f), f + grads[k], f)
+    for k, b in bn_old.items():
+        new_b[k] = torch.where(per_client(keep0, b), bn_new[k], b)
+    return new_p, new_m, new_f, new_b
 
 
 # ---------------------------------------------------------------- the kernel
@@ -197,16 +217,20 @@ def _tables(entries, C) -> list:
 
 
 def _launch(tables, lr, valid, C, momentum, weight_decay) -> None:
-    """One kernel launch per table, on the current stream."""
-    stream = torch.cuda.current_stream(lr.device).cuda_stream
-    for t in tables:
-        err = _lib.fused_step_update_launch(
-            ctypes.byref(t), lr.data_ptr(), valid.data_ptr(), C,
-            float(momentum), float(weight_decay), stream)
-        if err != 0:
-            raise RuntimeError(f"fused_step_update launch failed: CUDA "
-                               f"error {err}")
-        fused_step_update.launches += 1
+    """One kernel launch per table, on the tensors' card's current stream,
+    with that card made current for the launch (a stream of one card
+    cannot take a launch made while another card is current)."""
+    with torch.cuda.device(lr.device):
+        stream = torch.cuda.current_stream(lr.device).cuda_stream
+        for t in tables:
+            err = _lib.fused_step_update_launch(
+                ctypes.byref(t), lr.data_ptr(), valid.data_ptr(), C,
+                float(momentum), float(weight_decay), stream)
+            if err != 0:
+                raise RuntimeError(f"fused_step_update launch failed: "
+                                   f"CUDA error {err}")
+            with _count_lock:       # a mesh drives its cards from threads
+                fused_step_update.launches += 1
 
 
 def _check(lr, valid, groups) -> int:

@@ -122,7 +122,7 @@ def initialize_distributed(init_method: Optional[str] = None,
     kw: Dict[str, Any] = {}
     if timeout_s is not None:
         kw["timeout"] = datetime.timedelta(seconds=float(timeout_s))
-    if backend == "nccl":
+    if device_type == "cuda":        # the rank's card, whatever the backend
         torch.cuda.set_device(rank_device("cuda"))
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=int(rank), **kw)

@@ -12,9 +12,10 @@ then run one after the other on it, which is how the sharded path is held
 to the unsharded one without a second card.
 
 The JAX package expresses the same layout as GSPMD shardings; here the
-round engine (fl/rounds.py) walks the shards itself, enqueues every
-shard's work before it reads any result, and gathers the per-client stacks
-with :func:`dba_mod_tpu_torch.parallel.distributed.gather_clients`.
+round engine (fl/rounds.py) walks the shards itself, driving each distinct
+card from a thread of its own with that card current, so the cards train
+at once, and gathers the per-client stacks with
+:func:`dba_mod_tpu_torch.parallel.distributed.gather_clients`.
 """
 from __future__ import annotations
 

@@ -119,6 +119,39 @@ def test_cpu_wrapper_updates_in_place_and_skips_invalid_lanes(fg_on):
     assert fu.fused_step_update.launches == 0   # no kernel on the CPU
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("valid", [
+    [1, 0, 1, 1], [1, 1, 1, 1], [0, 0, 0, 0], [0, 1, 0, 0]],
+    ids=["one_invalid", "all_valid", "none_valid", "one_valid"])
+@pytest.mark.parametrize("fg_on", [False, True])
+def test_in_place_cpu_path_is_bitwise_the_functional_reference(valid, fg_on):
+    """plain_update_ (the wrapper's CPU path, in place) against
+    fused_step_update_reference (the functional yardstick the kernel is
+    held to and timed against), bit for bit, with NaN and inf gradient
+    rows in valid and invalid lanes."""
+    lr, _, params, grads, mom, fg, bn_new, bn_old = _inputs(2, fg_on, True)
+    for k, g in grads.items():
+        g.reshape(C, -1)[0, 0] = np.nan          # valid or not, per case
+        g.reshape(C, -1)[1, -1] = np.inf
+        g.reshape(C, -1)[3, 0] = -np.inf
+    args = (torch.from_numpy(lr), torch.from_numpy(
+        np.asarray(valid, np.float32)))
+    kw = dict(momentum=MOMENTUM, weight_decay=DECAY)
+    want = fu.fused_step_update_reference(
+        *args, _t(params), _t(grads), _t(mom), _t(fg), _t(bn_new),
+        _t(bn_old), **kw)
+    got = (_t(params), _t(mom), _t(fg), _t(bn_old))
+    fu.plain_update_(*args, got[0], _t(grads), got[1], got[2], _t(bn_new),
+                     got[3], **kw)
+    for g_tree, w_tree in zip(got, want):
+        assert set(g_tree) == set(w_tree)
+        for k in w_tree:
+            assert torch.equal(_bits(g_tree[k]), _bits(w_tree[k])), k
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     lr, valid = torch.ones(2), torch.ones(2)
     w = {"a": torch.zeros(2, 3)}

@@ -13,6 +13,8 @@ sharded round of fl/rounds.py) against the JAX package.
   mesh adds inert zero lanes to FedAvg's sum, and torch.sum over 8 lanes
   groups its float32 additions otherwise than over 6: the clients stay
   bitwise, the global model moves by an ulp (measured 1.9e-9);
+- shards on distinct devices train on a thread each, bitwise the
+  unsharded round;
 - 6 clients on 4 shards record 6 clients; padding raises under
   geom_median; the grouped, async and sequential_debug gates.
 """
@@ -212,6 +214,33 @@ def test_sharded_round_is_bitwise_the_unsharded_round(devs, tol):
     _same_run(plain, sharded, tol)
     assert [len(r["agents"]) for r in sharded.recorder._jsonl_rows] == \
         [4, 4]
+
+
+def test_distinct_devices_train_on_threads_bitwise(monkeypatch):
+    """Shards on distinct devices run on a thread each (fl/rounds.py::
+    _per_device), shards of one device inline. ``cpu`` and ``cpu:0`` are
+    two devices to the mesh, so a round over them takes the threaded path
+    on the CPU: each shard's work ran on its own thread, and the round is
+    bitwise the unsharded one."""
+    import threading
+    from dba_mod_tpu_torch.fl import rounds
+    seen = []
+    real = rounds._per_device
+
+    def spy(shards, fn):
+        def wrapped(sh):
+            seen.append((str(sh.device), threading.current_thread().name))
+            return fn(sh)
+        return real(shards, wrapped)
+    monkeypatch.setattr(rounds, "_per_device", spy)
+    cfg = dict(BASE, local_eval=False)
+    plain, _ = _run(cfg, None, epochs=1)
+    assert seen == []
+    threaded, _ = _run(cfg, ["cpu", "cpu:0"], epochs=1)
+    _same_run(plain, threaded)
+    assert [d for d, _ in seen] == ["cpu", "cpu:0"]
+    assert len({t for _, t in seen}) == 2
+    assert threading.main_thread().name not in {t for _, t in seen}
 
 
 def test_six_clients_on_four_shards_record_six():
